@@ -1,7 +1,7 @@
 """End-to-end recovery benchmark: the README / BASELINE.md north star.
 
 Default mode runs the Tutorial-3 image-plane workload (64x64 rays x
-ngeo=100, 64 frames, 1000 iterations, domain compaction + fused Pallas
+ngeo=100, 64 frames, 1000 iterations, domain compaction + fused
 kernel); `--eht` runs the BASELINE.md north-star problem instead —
 recover the Tutorial-4 hotspot FROM AN ngEHT OBSERVATION (thermal-noise
 visibility synthesis -> complex-visibility chi^2 loss, reference
@@ -13,64 +13,38 @@ wall_s is training time only (geodesic precompute + compiles excluded —
 both are one-time, cached costs); psnr_3d is the recovered-vs-true 3D
 volume PSNR on a 64^3 grid; lc_err_pct is the mean absolute lightcurve
 error of the recovered movie in percent of the mean true flux
-(BASELINE.md target for --eht: < 10 min / < 1%). Results are also
-appended to RECOVERY.json (mode-keyed) as a per-round artifact.
+(BASELINE.md accuracy target for --eht: < 1%). The JSON line names the
+device it ran on; with no accelerator the run fails.
 """
 import json
 import os
 import sys
 import time
 
-os.environ['JAX_PLATFORMS'] = ''
-
 import numpy as np
-
-
-def record(result):
-    """Append the result into RECOVERY.json next to this script."""
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        'RECOVERY.json')
-    blob = {}
-    if os.path.exists(path):
-        try:
-            blob = json.loads(open(path).read())
-        except Exception:
-            blob = {}
-    # key by configuration, not just metric: the npix-128/factored
-    # production entry must not overwrite the npix-64 default one
-    key = result['metric']
-    if result.get('npix') not in (None, 64):
-        key += f"_npix{result['npix']}"
-    if result.get('operator') not in (None, 'dense'):
-        key += f"_{result['operator']}"
-    blob[key] = result
-    with open(path, 'w') as f:
-        json.dump(blob, f, indent=1)
 
 
 def main(num_iters=1000, small=False, eht=False, npix=None,
          operator=None):
-    from bench import ensure_tpu_reachable
-    ensure_tpu_reachable(
-        metric='time_to_recover_eht' if eht else 'time_to_recover')
     import jax
 
-    from bhnerf_tpu.utils import compilation_cache_dir
-    jax.config.update('jax_compilation_cache_dir',
-                      compilation_cache_dir())
-    jax.config.update('jax_persistent_cache_min_entry_size_bytes', -1)
-    jax.config.update('jax_persistent_cache_min_compile_time_secs', 0.3)
+    from bhnerf_jax.utils import enable_compilation_cache
+    enable_compilation_cache()
+    dev = jax.devices()[0]
+    if dev.platform != 'gpu':
+        raise SystemExit(f'bench_recovery measures a GPU; JAX found '
+                         f'{dev.platform!r}')
 
     def mark(msg):
         print(f'# [{time.strftime("%H:%M:%S")}] {msg}', file=sys.stderr,
               flush=True)
 
-    from bhnerf_tpu import constants, emission, units, utils
-    from bhnerf_tpu.models import NeRFPredictor, sample_3d_grid
-    from bhnerf_tpu.geodesics import image_plane_geos
-    from bhnerf_tpu.train import (Optimizer, TrainStep, raytracing_args,
+    from bhnerf_jax import constants, emission, units, utils
+    from bhnerf_jax.models import NeRFPredictor, sample_3d_grid
+    from bhnerf_jax.geodesics import image_plane_geos
+    from bhnerf_jax.train import (Optimizer, TrainStep, raytracing_args,
                                   total_movie_loss)
-    from bhnerf_tpu.train.step import compact_raytracing_args
+    from bhnerf_jax.train.step import compact_raytracing_args
 
     spin, inc = 0.2, np.deg2rad(60.0)
     fov_M = 16.0
@@ -85,15 +59,9 @@ def main(num_iters=1000, small=False, eht=False, npix=None,
     compute_dtype = os.environ.get('BENCH_COMPUTE_DTYPE', 'bfloat16')
 
     mark(f'backend={jax.default_backend()}; tracing geodesics')
-    from bhnerf_tpu.geodesics.dataset import Geodesics
-    cache = f'/tmp/bhnerf_tpu_geos_rec_{num}x{num}x{ngeo}_f{fov_M}.npz'
-    if os.path.exists(cache):
-        geos = Geodesics.load(cache)
-    else:
-        geos = image_plane_geos(spin, inc, (-fov_M / 2, fov_M / 2),
-                                (-fov_M / 2, fov_M / 2), ngeo=ngeo,
-                                num_alpha=num, num_beta=num)
-        geos.save(cache)
+    geos = image_plane_geos(spin, inc, (-fov_M / 2, fov_M / 2),
+                            (-fov_M / 2, fov_M / 2), ngeo=ngeo,
+                            num_alpha=num, num_beta=num)
     Omega = geos.keplerian_omega()
     r_isco = float(constants.isco_pro(spin))
     hotspot = emission.generate_hotspot(
@@ -116,7 +84,7 @@ def main(num_iters=1000, small=False, eht=False, npix=None,
     if eht:
         # north star (BASELINE.md): recover from an ngEHT observation —
         # thermal-noise visibility synthesis + complex-vis chi^2 loss
-        from bhnerf_tpu import constants as consts, observation
+        from bhnerf_jax import constants as consts, observation
         mark('synthesizing ngEHT observation')
         array = observation.load_txt(os.path.join(
             os.path.dirname(os.path.abspath(__file__)), 'eht_arrays',
@@ -140,9 +108,9 @@ def main(num_iters=1000, small=False, eht=False, npix=None,
     # pre-compile the scanned train step outside the timed window
     # (one-time cost, persistent-cached across runs)
     mark('compiling train step')
-    from bhnerf_tpu.train.step import make_scan_step
+    from bhnerf_jax.train.step import make_scan_step
     chunk = int(os.environ.get('BENCH_SCAN_CHUNK', 500))
-    from bhnerf_tpu.train import TrainState
+    from bhnerf_jax.train import TrainState
     scan_fn = make_scan_step(batchsize=min(6, nt), chunk=chunk,
                              **train_step.scan_meta)
     # throwaway state (the scanned step donates its state argument) with
@@ -190,11 +158,11 @@ def main(num_iters=1000, small=False, eht=False, npix=None,
         'num_iters': num_iters,
         'npix': num,
         'compute_dtype': compute_dtype,
-        'chip': jax.devices()[0].device_kind,
+        'device': {'platform': dev.platform, 'kind': dev.device_kind,
+                   'count': len(jax.devices())},
     }
     if eht:
         result['operator'] = operator
-    record(result)
     print(json.dumps(result))
 
 

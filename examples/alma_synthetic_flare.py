@@ -4,7 +4,7 @@ End-to-end equivalent of the reference "ALMA lightcurves 0/1" notebooks
 without the proprietary Apr11_HI.dat file: synthesize an ALMA-format
 lightcurve CSV from an orbiting hotspot (4s cadence, shadow
 polarization, Faraday rotation), run the full preprocessing + fitting +
-chi-square inclination scan of bhnerf_tpu.alma.
+chi-square inclination scan of bhnerf_jax.alma.
 
 Run:  python examples/alma_synthetic_flare.py [--small]
 """
@@ -24,7 +24,7 @@ def synthesize_alma_csv(path, inc_true=60.0, t_start=9.33, t_end=11.0,
     ALMA data product (shadow polarization + Faraday rotation + noise)."""
     import pandas as pd
 
-    from bhnerf_tpu import alma, emission, units
+    from bhnerf_jax import alma, emission, units
 
     model_params = {
         'spin': 0.0, 'fov_M': 40.0, 'z_width': 4.0, 'rmin': 'ISCO',
@@ -70,9 +70,9 @@ def main(out_dir='example_outputs', small=False):
     matplotlib.use('Agg')
     import matplotlib.pyplot as plt
 
-    from bhnerf_tpu import alma, units
-    from bhnerf_tpu.models import NeRFPredictor
-    from bhnerf_tpu.train import (TrainState, TrainStep, make_optimizer,
+    from bhnerf_jax import alma, units
+    from bhnerf_jax.models import NeRFPredictor
+    from bhnerf_jax.train import (TrainState, TrainStep, make_optimizer,
                                   save_checkpoint)
 
     os.makedirs(out_dir, exist_ok=True)

@@ -26,8 +26,8 @@ def ring_stokes(spin, inc_deg, req, beta_v, chi_deg, b_field, mbar=0,
     evaluate the boosted-ZAMO parallel-transported Stokes factors at the
     crossing sample.
     """
-    from bhnerf_tpu.geodesics import equatorial, trace_geodesics
-    from bhnerf_tpu.ops import gr
+    from bhnerf_jax.geodesics import equatorial, trace_geodesics
+    from bhnerf_jax.ops import gr
 
     inc = np.deg2rad(inc_deg)
     chi = np.deg2rad(chi_deg)
@@ -56,7 +56,7 @@ def main(out_dir='example_outputs', small=False):
     matplotlib.use('Agg')
     import matplotlib.pyplot as plt
 
-    from bhnerf_tpu.visualization import plot_evpa_ticks
+    from bhnerf_jax.visualization import plot_evpa_ticks
 
     os.makedirs(out_dir, exist_ok=True)
     nphi = 16 if small else 64

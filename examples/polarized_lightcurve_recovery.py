@@ -2,7 +2,7 @@
 
 The "Synthetic lightcurves 1 - Recovery idealized" workflow of the
 reference: fit the NeRF to polarized (Q, U) lightcurves of a hotspot at
-the true inclination through the optimized compact+fused TPU path.
+the true inclination through the optimized compact+fused path.
 Lightcurve-only tomography is strongly ill-posed (1D data -> 3D volume);
 the reference attacks it with 50k-iteration runs over inclination grids
 and random seeds (scripts/fit_synthetic_lp_flares.py) — this example is
@@ -13,17 +13,15 @@ Run:  python examples/polarized_lightcurve_recovery.py [--small]
 """
 import sys
 sys.path.insert(0, __import__('os').path.join(__import__('os').path.dirname(__file__), '..'))
-import os; os.environ['JAX_PLATFORMS']=''
 import time
 import numpy as np
 import jax
-from bhnerf_tpu.utils import compilation_cache_dir
-jax.config.update('jax_compilation_cache_dir', compilation_cache_dir())
-jax.config.update('jax_persistent_cache_min_entry_size_bytes', -1)
-from bhnerf_tpu import alma, constants, emission, units, utils
-from bhnerf_tpu.models import NeRFPredictor, sample_3d_grid
-from bhnerf_tpu.train import TrainState, TrainStep, make_optimizer, raytracing_args
-from bhnerf_tpu.train.step import compact_raytracing_args
+from bhnerf_jax.utils import enable_compilation_cache
+enable_compilation_cache()
+from bhnerf_jax import alma, constants, emission, units, utils
+from bhnerf_jax.models import NeRFPredictor, sample_3d_grid
+from bhnerf_jax.train import TrainState, TrainStep, make_optimizer, raytracing_args
+from bhnerf_jax.train.step import compact_raytracing_args
 
 SMALL = '--small' in sys.argv
 NUM = 16 if SMALL else 64

@@ -26,9 +26,9 @@ def main(out_dir='example_outputs', small=False, device_geos=False):
     matplotlib.use('Agg')
     import matplotlib.pyplot as plt
 
-    from bhnerf_tpu import alma, emission, units
-    from bhnerf_tpu.models import NeRFPredictor
-    from bhnerf_tpu.train import Optimizer, TrainStep
+    from bhnerf_jax import alma, emission, units
+    from bhnerf_jax.models import NeRFPredictor
+    from bhnerf_jax.train import Optimizer, TrainStep
 
     os.makedirs(out_dir, exist_ok=True)
     true_inc = 60.0

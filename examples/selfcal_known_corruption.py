@@ -34,10 +34,10 @@ def main(out_dir='example_outputs', small=False):
     matplotlib.use('Agg')
     import matplotlib.pyplot as plt
 
-    from bhnerf_tpu import constants, emission, observation, units
-    from bhnerf_tpu.geodesics import image_plane_geos
-    from bhnerf_tpu.models import NeRFPredictor
-    from bhnerf_tpu.train import (TrainState, TrainStep, make_optimizer,
+    from bhnerf_jax import constants, emission, observation, units
+    from bhnerf_jax.geodesics import image_plane_geos
+    from bhnerf_jax.models import NeRFPredictor
+    from bhnerf_jax.train import (TrainState, TrainStep, make_optimizer,
                                   raytracing_args)
 
     os.makedirs(out_dir, exist_ok=True)

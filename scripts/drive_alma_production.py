@@ -148,7 +148,7 @@ def main():
     p.send_signal(signal.SIGTERM)
     p.wait(timeout=600)
     assert p.returncode == 0, f'fit rc={p.returncode}:\n{leg1_tail()}'
-    from bhnerf_tpu.train.state import latest_checkpoint_step
+    from bhnerf_jax.train.state import latest_checkpoint_step
     stop_step = latest_checkpoint_step(run_dir)
     assert stop_step and stop_step < args.num_iters, stop_step
     print(f'# leg1: SIGTERM at step {stop_step} '
@@ -183,7 +183,7 @@ def main():
 import os, sys, json
 sys.path.insert(0, {REPO!r})
 import numpy as np
-from bhnerf_tpu import alma, config as config_lib, units
+from bhnerf_jax import alma, config as config_lib, units
 cfg = config_lib.RunConfig.from_yaml({cfg_path!r})
 cfg.preprocess.data_path = {csv_path!r}
 opt_cfg = cfg.optimization

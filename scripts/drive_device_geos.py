@@ -1,10 +1,10 @@
-"""Drive: on-device (f32) geodesic tracing vs host (f64) on the real chip.
+"""Drive: on-device (f32) geodesic tracing vs host (f64).
 
 Validates accuracy and measures the speedup of
 `trace_geodesics(backend='device')` for the chi^2-scan table workload
 (64x64 rays x ngeo=100, the production ALMA shape is 128x128).
 
-Run: PYTHONPATH=/root/repo python scripts/drive_device_geos.py [npix]
+Run: python scripts/drive_device_geos.py [npix]
 """
 import os
 import sys
@@ -12,7 +12,6 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-os.environ['JAX_PLATFORMS'] = ''
 
 import numpy as np  # noqa: E402
 
@@ -20,9 +19,9 @@ import numpy as np  # noqa: E402
 def main():
     import jax
 
-    from bhnerf_tpu.utils import compilation_cache_dir
-    jax.config.update('jax_compilation_cache_dir', compilation_cache_dir())
-    from bhnerf_tpu.geodesics import image_plane_geos
+    from bhnerf_jax.utils import enable_compilation_cache
+    enable_compilation_cache()
+    from bhnerf_jax.geodesics import image_plane_geos
 
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 64
     kw = dict(spin=0.94, inclination=np.deg2rad(60), alpha_range=(-8, 8),
@@ -58,7 +57,7 @@ def main():
     #    apply in the device-trace workflow — so a diverged f32 sample
     #    whose f32 r wandered back under rmax is covered by the bound,
     #    not excluded by an f64-truth mask the pipeline never sees.
-    #    The global max can still be huge (observed 52 M on chip):
+    #    The global max can still be huge (up to ~5e1 M observed):
     #    far-field segments (r ~ 700+) of near-critical rays diverge
     #    exponentially in f32 but sit outside the gate by their own
     #    f32 radii — quantified in tests/test_geodesics.py.

@@ -46,11 +46,11 @@ def parse_args():
 def main():
     import jax
 
-    import bhnerf_tpu as bh
-    from bhnerf_tpu import alma, config as config_lib, units
-    from bhnerf_tpu.models import NeRFPredictor
-    from bhnerf_tpu.train import LogFn, Optimizer, TrainStep
-    from bhnerf_tpu.train.logging import SummaryWriter
+    import bhnerf_jax as bh
+    from bhnerf_jax import alma, config as config_lib, units
+    from bhnerf_jax.models import NeRFPredictor
+    from bhnerf_jax.train import LogFn, Optimizer, TrainStep
+    from bhnerf_jax.train.logging import SummaryWriter
     from tqdm import tqdm
 
     basename = 'inc_{:.1f}.seed_{}'
@@ -106,7 +106,7 @@ def main():
             # domain compaction (uniformly padded across the sub-pixel
             # ensemble) puts the whole fit — including the in-scan
             # per-step variant draw — on the fused scan-chunked path
-            from bhnerf_tpu.train.step import compact_ensemble_args
+            from bhnerf_jax.train.step import compact_ensemble_args
             raytracing_args = compact_ensemble_args(
                 raytracing_args, predictor, layout='gather')
 

@@ -35,10 +35,10 @@ def parse_args():
 def main():
     import yaml
 
-    from bhnerf_tpu import alma, config as config_lib, units, utils
-    from bhnerf_tpu.models import NeRFPredictor
-    from bhnerf_tpu.train import LogFn, Optimizer, TrainStep
-    from bhnerf_tpu.train.logging import SummaryWriter
+    from bhnerf_jax import alma, config as config_lib, units, utils
+    from bhnerf_jax.models import NeRFPredictor
+    from bhnerf_jax.train import LogFn, Optimizer, TrainStep
+    from bhnerf_jax.train.logging import SummaryWriter
     from tqdm import tqdm
     import pandas as pd
 
@@ -72,7 +72,7 @@ def main():
     rmax = fov_M / 2
     rmin = model_params['rmin']
     if rmin == 'ISCO':
-        from bhnerf_tpu import constants
+        from bhnerf_jax import constants
         rmin = float(constants.isco_pro(spin))
     model_params.update(rmax=rmax, rmin=rmin)
 
@@ -113,7 +113,7 @@ def main():
         if opt_cfg.fused:
             # uniform compaction keeps the sub-pixel ensemble on the
             # fused scan-chunked path (variant drawn in-scan)
-            from bhnerf_tpu.train.step import compact_ensemble_args
+            from bhnerf_jax.train.step import compact_ensemble_args
             raytracing_args = compact_ensemble_args(
                 raytracing_args, predictor, layout='gather')
 

@@ -45,8 +45,8 @@ def main():
     import pandas as pd
     import yaml
 
-    from bhnerf_tpu import alma, constants, emission, units
-    from bhnerf_tpu.train import step as step_lib
+    from bhnerf_jax import alma, constants, emission, units
+    from bhnerf_jax.train import step as step_lib
 
     inc = np.deg2rad(args.inc)
     model_params = {
@@ -73,7 +73,7 @@ def main():
                                        r_isco, args.fov_M)
         v2 = emission.generate_hotspot(res, [0, 0, 1], np.pi, 1.3 * orbit_r,
                                        1.0, r_isco, args.fov_M)
-        import bhnerf_tpu.utils as utils
+        import bhnerf_jax.utils as utils
         vol = utils.Grid3D(v1.data + 0.6 * v2.data, v1.start, v1.stop)
 
     t_frames = units.Quantity(

@@ -1,7 +1,8 @@
 """Profile the fused scan step and print the device-op time breakdown.
 
 Writes a jax.profiler trace of REPS scanned train steps, then parses the
-perfetto JSON to aggregate TensorCore op durations. Run on the real chip.
+perfetto JSON to aggregate the durations of the ops that ran on the GPU.
+Run on a GPU machine:  python scripts/perf_trace.py [--alma | --eht]
 """
 import glob
 import gzip
@@ -11,45 +12,36 @@ import sys
 import time
 from collections import defaultdict
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-os.environ['JAX_PLATFORMS'] = ''
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 import numpy as np  # noqa: E402
 
 REPS = 50
-TRACE_DIR = '/tmp/bhnerf_tpu_trace'
+TRACE_DIR = os.path.join(REPO, 'chiprun_out', 'perf_trace')
 
 
 def _cached_geos(fov):
-    """64x64x100 geodesic table, shared with bench.py's /tmp cache (the
-    f64 host trace is ~2 min on this box's single core)."""
-    from bhnerf_tpu.geodesics import image_plane_geos
-    from bhnerf_tpu.geodesics.dataset import Geodesics
-    cache = f'/tmp/bhnerf_tpu_geos_bench_64x64x100_f{fov}.npz'
-    if os.path.exists(cache):
-        return Geodesics.load(cache)
-    geos = image_plane_geos(
+    """The bench's 64x64x100 geodesic table (host f64 trace)."""
+    from bhnerf_jax.geodesics import image_plane_geos
+    return image_plane_geos(
         spin=0.2, inclination=np.deg2rad(60.0),
         alpha_range=(-fov / 2, fov / 2), beta_range=(-fov / 2, fov / 2),
         ngeo=100, num_alpha=64, num_beta=64, n_fine=4096)
-    geos.save(cache)
-    return geos
 
 
 def main():
     import jax
     import jax.numpy as jnp
 
-    from bhnerf_tpu.utils import compilation_cache_dir
-    jax.config.update('jax_compilation_cache_dir',
-                      compilation_cache_dir())
+    from bhnerf_jax.utils import enable_compilation_cache
+    enable_compilation_cache()
 
-    from bhnerf_tpu import constants, units
-    from bhnerf_tpu.geodesics import image_plane_geos
-    from bhnerf_tpu.models import NeRFPredictor
-    from bhnerf_tpu.train import TrainState, make_optimizer, raytracing_args
-    from bhnerf_tpu.train.step import (compact_raytracing_args,
+    from bhnerf_jax import constants, units
+    from bhnerf_jax.geodesics import image_plane_geos
+    from bhnerf_jax.models import NeRFPredictor
+    from bhnerf_jax.train import TrainState, make_optimizer, raytracing_args
+    from bhnerf_jax.train.step import (compact_raytracing_args,
                                        make_scan_step)
 
     fov = 16.0
@@ -63,8 +55,8 @@ def main():
     if eht:
         # visibility-loss north-star step (bench_recovery --eht shape):
         # ngEHT thermal-noise synthesis -> complex-vis chi^2, compact+fused
-        from bhnerf_tpu import observation
-        from bhnerf_tpu.train import TrainStep
+        from bhnerf_jax import observation
+        from bhnerf_jax.train import TrainStep
         geos = _cached_geos(fov)
         Omega = geos.keplerian_omega()
         t_frames = units.Quantity(
@@ -88,7 +80,7 @@ def main():
         import jax
         scan_fn = make_scan_step(batchsize=6, chunk=REPS,
                                  **train_step.scan_meta)
-        from bhnerf_tpu.train import TrainState, make_optimizer
+        from bhnerf_jax.train import TrainState, make_optimizer
         state = TrainState.create(predictor.init_params(seed=0),
                                   make_optimizer(50000))
         dev_args = train_step.args[0].device_args
@@ -108,7 +100,7 @@ def main():
         # polarized flagship shape with the in-scan ensemble
         # (same synthetic workload as bench.bench_alma_shape)
         import bench as bench_lib
-        from bhnerf_tpu.train.step import (compact_ensemble_args,
+        from bhnerf_jax.train.step import (compact_ensemble_args,
                                            stack_ensemble)
         num_variants = 10
         if '--variants' in sys.argv:
@@ -164,13 +156,13 @@ def report():
     with gzip.open(traces[-1], 'rt') as f:
         data = json.load(f)
 
-    # find TensorCore process/thread ids
+    # GPU device processes (/device:GPU:N); the host threads are skipped
     events = data['traceEvents']
     pid_names = {e['pid']: e['args'].get('name', '') for e in events
                  if e.get('ph') == 'M' and e.get('name') == 'process_name'
                  and 'args' in e}
     device_pids = {p for p, n in pid_names.items()
-                   if 'TPU' in n or 'TensorCore' in n}
+                   if n.startswith('/device:GPU')}
     agg = defaultdict(float)
     total = 0.0
     for e in events:

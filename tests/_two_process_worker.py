@@ -28,7 +28,7 @@ def main():
     import jax
     jax.config.update('jax_platforms', 'cpu')
 
-    from bhnerf_tpu.parallel import (create_hybrid_mesh,
+    from bhnerf_jax.parallel import (create_hybrid_mesh,
                                      initialize_distributed,
                                      make_global_frames)
 
@@ -87,7 +87,7 @@ def main():
     np.testing.assert_allclose(np.asarray(grad), want_grad, rtol=1e-6)
 
     # --- checkpoint: process 0 writes once; both restore in agreement --
-    from bhnerf_tpu.train import state as state_lib
+    from bhnerf_jax.train import state as state_lib
     tx = state_lib.make_optimizer(num_iters=10)
     params = {'dense': {'w': jax.device_put(w, repl)}}
     state = state_lib.TrainState.create(params, tx)

@@ -3,9 +3,9 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from bhnerf_tpu import alma, config as config_lib, units
-from bhnerf_tpu.models import NeRFPredictor
-from bhnerf_tpu.train import TrainState, TrainStep, make_optimizer
+from bhnerf_jax import alma, config as config_lib, units
+from bhnerf_jax.models import NeRFPredictor
+from bhnerf_jax.train import TrainState, TrainStep, make_optimizer
 
 MODEL_PARAMS = {
     'spin': 0.0, 'fov_M': 16.0, 'z_width': 2.0, 'rmin': 'ISCO',
@@ -69,7 +69,7 @@ def test_subpixel_ray_ensemble():
 def test_device_ensemble_single_dispatch_matches_loop():
     """backend='device' ensembles trace all variants in one stacked
     call; same seed must reproduce the per-variant loop exactly."""
-    from bhnerf_tpu import alma as alma_lib
+    from bhnerf_jax import alma as alma_lib
 
     kw = dict(stokes=['I', 'Q', 'U'], num_subpixel_rays=3)
     batched = alma_lib.get_raytracing_args(
@@ -116,7 +116,7 @@ def test_polarized_lc_fit_and_chi2(tmp_path, alma_rt_args):
     """Fit Q,U lightcurves through the TrainStep.image 'lc' path, save a
     checkpoint, then score it with chi2_lightcurves (reference
     alma.py:83-117 flow)."""
-    from bhnerf_tpu.train import save_checkpoint
+    from bhnerf_jax.train import save_checkpoint
     rt = alma_rt_args[0]
 
     t_frames = units.Quantity(np.linspace(9.4, 9.9, 12), 'hr')
@@ -172,7 +172,7 @@ def test_checkpoint_render_averages_subpixel_ensemble(tmp_path):
     """image_plane_checkpoint over a 3-variant sub-pixel-ray ensemble must
     equal the mean of the per-variant renders (reference network.py:905
     passes the full ensemble into total_movie_loss; VERDICT r1 weak #3)."""
-    from bhnerf_tpu.train import TrainState, make_optimizer, save_checkpoint
+    from bhnerf_jax.train import TrainState, make_optimizer, save_checkpoint
 
     rng = np.random.default_rng(3)
     rt_list = alma.get_raytracing_args(np.deg2rad(45.0), 0.0, MODEL_PARAMS,
@@ -203,8 +203,8 @@ def test_chi2_df_grid_identifies_inclination(tmp_path):
     checkpoints at the true and a wrong inclination on a synthetic
     polarized lightcurve, score the grid with alma.chi2_df, and require
     chi^2(true) < chi^2(wrong)."""
-    from bhnerf_tpu import constants, emission
-    from bhnerf_tpu.train import Optimizer
+    from bhnerf_jax import constants, emission
+    from bhnerf_jax.train import Optimizer
 
     true_inc, wrong_inc, spin = 60.0, 20.0, 0.0
     num_iters = 250
@@ -228,7 +228,7 @@ def test_chi2_df_grid_identifies_inclination(tmp_path):
 
     ckpt_fmt = str(tmp_path / 'inc{}' / 'seed{}')
     for inc in (true_inc, wrong_inc):
-        from bhnerf_tpu.train.step import compact_raytracing_args
+        from bhnerf_jax.train.step import compact_raytracing_args
         rt_list = alma.get_raytracing_args(np.deg2rad(inc), spin, params)
         predictor = NeRFPredictor(
             scale=params['fov_M'] / 2, rmin=rmin,

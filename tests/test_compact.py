@@ -6,12 +6,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from bhnerf_tpu import units
-from bhnerf_tpu.geodesics import image_plane_geos
-from bhnerf_tpu.models import NeRFPredictor
-from bhnerf_tpu.ops import gr
-from bhnerf_tpu.train import raytracing_args
-from bhnerf_tpu.train.step import (compact_raytracing_args,
+from bhnerf_jax import units
+from bhnerf_jax.geodesics import image_plane_geos
+from bhnerf_jax.models import NeRFPredictor
+from bhnerf_jax.ops import gr
+from bhnerf_jax.train import raytracing_args
+from bhnerf_jax.train.step import (compact_raytracing_args,
                                    image_plane_prediction)
 
 
@@ -92,7 +92,7 @@ def test_grouped_reduction_matches_direct_scatter(setup):
     smaller scatter, custom VJP) must equal the direct segment_sum path
     in both values and input gradients."""
     import dataclasses
-    from bhnerf_tpu.train.step import _reduce_to_images
+    from bhnerf_jax.train.step import _reduce_to_images
     predictor, params, rt, _, t_frames_M = setup
     crt = compact_raytracing_args(rt, predictor, layout='gather')
     assert crt.red_gather is not None
@@ -138,7 +138,7 @@ def test_grouped_reduction_fuzz_segment_distributions():
     segment_sum for adversarial pixel-id distributions — empty pixels,
     1-sample pixels, one huge segment, all sizes mod G."""
     import dataclasses
-    from bhnerf_tpu.train.step import (CompactRayArgs, _reduce_to_images,
+    from bhnerf_jax.train.step import (CompactRayArgs, _reduce_to_images,
                                        compact_raytracing_args, _REDUCE_G)
     rng = np.random.default_rng(7)
     npix = 37
@@ -170,7 +170,7 @@ def _build_compact_for_test(pixel_ids, W, npix, n_pad, tile):
     """Mirror compact_raytracing_args' grouped-layout construction for a
     synthetic (pixel_ids, weights) pair."""
     import jax.numpy as _jnp
-    from bhnerf_tpu.train.step import CompactRayArgs, _REDUCE_G
+    from bhnerf_jax.train.step import CompactRayArgs, _REDUCE_G
     n_eff = pixel_ids.size
     G = _REDUCE_G
     W_pad = np.concatenate(
@@ -246,7 +246,7 @@ def test_native_layout_selection_and_equality(setup):
 def test_native_layout_ensemble_uniform(setup):
     """compact_ensemble_args produces uniformly-shaped native-layout
     variants (pad_groups path)."""
-    from bhnerf_tpu.train.step import compact_ensemble_args, stack_ensemble
+    from bhnerf_jax.train.step import compact_ensemble_args, stack_ensemble
     predictor, params, rt, _, t_frames_M = setup
     import dataclasses
     # perturb weights to mimic distinct sub-pixel variants with
@@ -261,7 +261,7 @@ def test_native_layout_ensemble_uniform(setup):
 def test_compact_lightcurve_matmul_matches_image_sum(setup):
     """The direct lc = em @ W^T path equals summing the per-pixel images
     (values and parameter gradients), polarized and unpolarized."""
-    from bhnerf_tpu.train.step import compact_lightcurve
+    from bhnerf_jax.train.step import compact_lightcurve
     predictor, params, rt, rt_scalar, t_frames_M = setup
     for rt_i in (rt, rt_scalar):
         crt = compact_raytracing_args(rt_i, predictor)

@@ -12,11 +12,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from bhnerf_tpu import units
-from bhnerf_tpu.geodesics import image_plane_geos
-from bhnerf_tpu.models import NeRFPredictor
-from bhnerf_tpu.train import TrainState, make_optimizer, raytracing_args
-from bhnerf_tpu.train.step import (compact_ensemble_args, make_scan_step,
+from bhnerf_jax import units
+from bhnerf_jax.geodesics import image_plane_geos
+from bhnerf_jax.models import NeRFPredictor
+from bhnerf_jax.train import TrainState, make_optimizer, raytracing_args
+from bhnerf_jax.train.step import (compact_ensemble_args, make_scan_step,
                                    make_step_fns, stack_ensemble)
 
 
@@ -118,7 +118,7 @@ def test_ensemble_scan_matches_per_step_loop(ensemble):
 def test_optimizer_runs_ensemble_scan(ensemble):
     """Optimizer.run takes the scan path for an ensemble TrainStep and
     trains to a finite decreasing loss."""
-    from bhnerf_tpu.train import Optimizer, TrainStep
+    from bhnerf_jax.train import Optimizer, TrainStep
     predictor, crt_list, t_frames, target = ensemble
     ts = TrainStep.image(units.Quantity(t_frames, 'hr'), target, predictor,
                          dtype='full')
@@ -142,7 +142,7 @@ def test_composed_scan_matches_per_step_loop(ensemble):
     """Composed 'full' + 'lc' losses on the scan path are loss-equal,
     step for step, to the sequential per-loss gather-in-jit loop
     replaying the same PRNG chain (VERDICT r2 next #2, composed part)."""
-    from bhnerf_tpu.train.step import make_composed_scan_step
+    from bhnerf_jax.train.step import make_composed_scan_step
     predictor, crt_list, t_frames, target = ensemble
     crt = crt_list[0]
     chunk, batchsize = 5, 4
@@ -192,8 +192,8 @@ def test_composed_scan_matches_per_step_loop(ensemble):
 def test_optimizer_runs_composed_scan(ensemble, monkeypatch):
     """Optimizer.run routes a `+`-composed TrainStep through
     make_composed_scan_step and trains to a decreasing loss."""
-    from bhnerf_tpu.train import Optimizer, TrainStep
-    from bhnerf_tpu.train import step as step_lib
+    from bhnerf_jax.train import Optimizer, TrainStep
+    from bhnerf_jax.train import step as step_lib
     predictor, crt_list, t_frames, target = ensemble
     crt = crt_list[0]
     t_hr = units.Quantity(t_frames, 'hr')
@@ -231,7 +231,7 @@ def test_composed_ensemble_scan_matches_per_step_loop(ensemble):
     """Composed losses AND a sub-pixel ensemble together (the production
     ALMA shape with an extra prior term): one shared frame batch + one
     shared variant draw per step, sequential per-loss updates."""
-    from bhnerf_tpu.train.step import make_composed_scan_step
+    from bhnerf_jax.train.step import make_composed_scan_step
     predictor, crt_list, t_frames, target = ensemble
     stacked = stack_ensemble(crt_list)
     V = len(crt_list)
@@ -284,7 +284,7 @@ def test_composed_mismatched_frame_counts_raises(ensemble):
     batch (indices are drawn once per step and applied to every loss —
     reference optimization.py:176): composition must refuse loudly
     instead of silently clamping out-of-bounds frame indices."""
-    from bhnerf_tpu.train import TrainStep
+    from bhnerf_jax.train import TrainStep
     predictor, _, t_frames, target = ensemble
     ts_a = TrainStep.image(units.Quantity(t_frames, 'hr'), target,
                            predictor, dtype='full')

@@ -6,9 +6,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from bhnerf_tpu import network, units
-from bhnerf_tpu.models import NeRFPredictor
-from bhnerf_tpu.train import TrainState, make_optimizer, save_checkpoint
+from bhnerf_jax import network, units
+from bhnerf_jax.models import NeRFPredictor
+from bhnerf_jax.train import TrainState, make_optimizer, save_checkpoint
 
 
 def test_tv_reg_finite_and_scales():

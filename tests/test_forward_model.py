@@ -7,9 +7,9 @@ lightcurve with Doppler asymmetry.
 import numpy as np
 import pytest
 
-from bhnerf_tpu import constants, emission, units, utils
-from bhnerf_tpu.geodesics import image_plane_geos
-from bhnerf_tpu.ops import gr
+from bhnerf_jax import constants, emission, units, utils
+from bhnerf_jax.geodesics import image_plane_geos
+from bhnerf_jax.ops import gr
 
 
 @pytest.fixture(scope='module')

@@ -9,12 +9,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from bhnerf_tpu import constants, emission, units
-from bhnerf_tpu.geodesics import image_plane_geos
-from bhnerf_tpu.models import NeRFPredictor
-from bhnerf_tpu.ops import fused
-from bhnerf_tpu.train import raytracing_args
-from bhnerf_tpu.train.step import predict_emission
+from bhnerf_jax import constants, emission, units
+from bhnerf_jax.geodesics import image_plane_geos
+from bhnerf_jax.models import NeRFPredictor
+from bhnerf_jax.ops import fused
+from bhnerf_jax.train import raytracing_args
+from bhnerf_jax.train.step import predict_emission
 
 
 @pytest.fixture(scope='module')
@@ -120,8 +120,8 @@ def test_fused_vjp_tolerates_extra_param_leaves():
     than a custom_vjp structure error."""
     import jax
     import jax.numpy as jnp
-    from bhnerf_tpu.models import NeRFPredictor
-    from bhnerf_tpu.ops import fused
+    from bhnerf_jax.models import NeRFPredictor
+    from bhnerf_jax.ops import fused
     pred = NeRFPredictor(scale=8.0, net_width=16, net_depth=2,
                          learn_injection=True)
     params = pred.init_params(seed=0)
@@ -145,12 +145,12 @@ def test_fused_flag_routes_multichannel_to_xla():
     a fused=True request must transparently fall back instead of
     hitting the kernel's single-row output contract."""
     import jax.numpy as jnp
-    from bhnerf_tpu.geodesics import trace_geodesics
-    from bhnerf_tpu.models import NeRFPredictor
-    from bhnerf_tpu.train import raytracing_args
-    from bhnerf_tpu.train.step import (compact_raytracing_args,
+    from bhnerf_jax.geodesics import trace_geodesics
+    from bhnerf_jax.models import NeRFPredictor
+    from bhnerf_jax.train import raytracing_args
+    from bhnerf_jax.train.step import (compact_raytracing_args,
                                        image_plane_prediction)
-    from bhnerf_tpu import units
+    from bhnerf_jax import units
     b = np.linspace(3, 8, 8)
     geos = trace_geodesics(b, np.zeros_like(b), 0.0, np.deg2rad(60),
                            ngeo=16, n_fine=512)
@@ -187,7 +187,7 @@ def test_fused_learn_injection_grad_matches_xla(setup):
         np.random.default_rng(2).random((3, 8, 8, 16)), jnp.float32)
 
     def loss(p, use_fused):
-        from bhnerf_tpu.train.step import image_plane_prediction
+        from bhnerf_jax.train.step import image_plane_prediction
         em = (fused.predict_emission_fused(p, pred, t_frames_M, rt)
               if use_fused else predict_emission(p, pred, t_frames_M, rt))
         return jnp.sum((em - target) ** 2)
@@ -216,7 +216,7 @@ def test_fused_learn_injection_compact_path(setup):
     (no silent XLA reroute) and the t_injection gradient matches the
     compact XLA path."""
     import dataclasses as dc
-    from bhnerf_tpu.train.step import (compact_raytracing_args,
+    from bhnerf_jax.train.step import (compact_raytracing_args,
                                        image_plane_prediction)
     predictor, _, rt, t_frames_M = setup
     pred = dc.replace(predictor, learn_injection=True)

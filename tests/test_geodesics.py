@@ -7,8 +7,8 @@ points, Schwarzschild light travel time, conserved-quantity consistency.
 import numpy as np
 import pytest
 
-from bhnerf_tpu import constants
-from bhnerf_tpu.geodesics import kerr, image_plane_geos, trace_geodesics
+from bhnerf_jax import constants
+from bhnerf_jax.geodesics import kerr, image_plane_geos, trace_geodesics
 
 
 @pytest.fixture(scope='module')
@@ -150,7 +150,7 @@ def test_geodesics_save_load(tmp_path):
                            0.5, np.deg2rad(45), ngeo=16, n_fine=512)
     path = tmp_path / 'geos.npz'
     geos.save(path)
-    from bhnerf_tpu.geodesics import Geodesics
+    from bhnerf_jax.geodesics import Geodesics
     loaded = Geodesics.load(path)
     np.testing.assert_array_equal(loaded.r, geos.r)
     np.testing.assert_array_equal(loaded.t, geos.t)
@@ -282,7 +282,7 @@ def test_rho_of_req_unreachable_radius_is_nan():
     """req outside the reachable crossing-radius window must come back
     NaN, not the existence-window boundary (the bisection bracket also
     forms at the window edge)."""
-    from bhnerf_tpu.geodesics.equatorial import rho_of_req
+    from bhnerf_jax.geodesics.equatorial import rho_of_req
     varphis = np.linspace(-np.pi, np.pi, 4)
     # req inside the Schwarzschild horizon: no first crossing lands there
     _, rho_bad = rho_of_req(0.0, np.deg2rad(80), req=1.0, mbar=0,
@@ -297,7 +297,7 @@ def test_rho_of_req_unreachable_radius_is_nan():
 def test_geodesics_properties_stay_float64_host():
     """Derived metric properties are host numpy float64 (a jnp call on
     f64 input silently becomes f32 on the default backend)."""
-    from bhnerf_tpu.geodesics import trace_geodesics
+    from bhnerf_jax.geodesics import trace_geodesics
     b = np.linspace(3, 8, 4)
     geos = trace_geodesics(b, np.zeros_like(b), 0.5, np.deg2rad(60),
                            ngeo=16, n_fine=512)
@@ -309,7 +309,7 @@ def test_geodesics_properties_stay_float64_host():
 
 
 def test_trace_rejects_nonunit_mass():
-    from bhnerf_tpu.geodesics import trace_geodesics
+    from bhnerf_jax.geodesics import trace_geodesics
     with pytest.raises(ValueError, match='M=E=1'):
         trace_geodesics(np.array([5.0]), np.array([0.0]), 0.0,
                         np.deg2rad(60), M=2.0)
@@ -323,7 +323,7 @@ def test_device_backend_f32_trace_matches_f64(spin, inc_deg):
     envelope: geometry to ~1e-3 M away from the critical curve, and the
     Kahan-corrected coordinate time to ~1e-3 M even though t itself
     reaches O(r_o)."""
-    from bhnerf_tpu.geodesics import image_plane_geos
+    from bhnerf_jax.geodesics import image_plane_geos
 
     kw = dict(spin=spin, inclination=np.deg2rad(inc_deg),
               alpha_range=(-8, 8), beta_range=(-8, 8), ngeo=24,
@@ -370,8 +370,8 @@ def test_device_backend_f32_lightcurve_matches():
     """End-to-end criterion for chi^2 scans on device-traced tables: the
     forward hotspot lightcurve from the f32 table matches the f64 one
     to well under the scan's discriminating power (<1%)."""
-    from bhnerf_tpu import constants, emission, units
-    from bhnerf_tpu.geodesics import image_plane_geos
+    from bhnerf_jax import constants, emission, units
+    from bhnerf_jax.geodesics import image_plane_geos
 
     fov = 16.0
     kw = dict(spin=0.2, inclination=np.deg2rad(60),

@@ -23,7 +23,7 @@ from scipy.integrate import solve_ivp
 import jax
 import jax.numpy as jnp
 
-from bhnerf_tpu.geodesics.dataset import trace_geodesics
+from bhnerf_jax.geodesics.dataset import trace_geodesics
 
 SPIN = 0.94
 INC = np.deg2rad(60.0)

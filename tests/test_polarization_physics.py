@@ -4,9 +4,9 @@ SURVEY.md §4 'physics validation against published results').
 import numpy as np
 import pytest
 
-from bhnerf_tpu import emission, kgeo
-from bhnerf_tpu.geodesics import equatorial, trace_geodesics
-from bhnerf_tpu.ops import gr
+from bhnerf_jax import emission, kgeo
+from bhnerf_jax.geodesics import equatorial, trace_geodesics
+from bhnerf_jax.ops import gr
 
 
 def test_equatorial_crossing_self_consistency():
@@ -90,7 +90,7 @@ def test_evpa_rotation_preserves_dolp():
 
 
 def test_kgeo_facade_parity():
-    """Reference-named API surface resolves through bhnerf_tpu.kgeo."""
+    """Reference-named API surface resolves through bhnerf_jax.kgeo."""
     for name in ('image_plane_geos', 'wave_vector', 'spacetime_metric',
                  'spacetime_inv_metric', 'raise_or_lower_indices',
                  'azimuthal_velocity_vector', 'doppler_factor',
@@ -100,13 +100,13 @@ def test_kgeo_facade_parity():
                  'parallel_transport_zamo', 'radiative_trasfer',
                  'equatorial_lensing'):
         assert hasattr(kgeo, name), name
-    import bhnerf_tpu
+    import bhnerf_jax
     for name in ('network', 'optimization', 'emission', 'utils',
                  'constants', 'observation', 'alma', 'visualization'):
-        assert hasattr(bhnerf_tpu, name), name
-    assert hasattr(bhnerf_tpu.network, 'NeRF_Predictor')
-    assert hasattr(bhnerf_tpu.optimization, 'Optimizer')
-    assert hasattr(bhnerf_tpu.optimization, 'TrainStep')
+        assert hasattr(bhnerf_jax, name), name
+    assert hasattr(bhnerf_jax.network, 'NeRF_Predictor')
+    assert hasattr(bhnerf_jax.optimization, 'Optimizer')
+    assert hasattr(bhnerf_jax.optimization, 'TrainStep')
 
 
 def _ring_stokes(**kw):

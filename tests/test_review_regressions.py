@@ -4,7 +4,7 @@ import pytest
 
 import jax
 
-from bhnerf_tpu import emission, observation as obs_lib, units, utils
+from bhnerf_jax import emission, observation as obs_lib, units, utils
 
 
 def test_2d_hotspot_field():
@@ -32,10 +32,10 @@ def test_chisqdata_single_frame_keeps_nt_axis():
 
 def test_total_movie_loss_exact_tail():
     """Ragged nt % batchsize tail must contribute its exact loss."""
-    from bhnerf_tpu import constants
-    from bhnerf_tpu.geodesics import image_plane_geos
-    from bhnerf_tpu.models import NeRFPredictor
-    from bhnerf_tpu.train import (TrainState, TrainStep, make_optimizer,
+    from bhnerf_jax import constants
+    from bhnerf_jax.geodesics import image_plane_geos
+    from bhnerf_jax.models import NeRFPredictor
+    from bhnerf_jax.train import (TrainState, TrainStep, make_optimizer,
                                   raytracing_args, total_movie_loss)
 
     geos = image_plane_geos(0.0, np.deg2rad(60), (-8, 8), (-8, 8),
@@ -80,10 +80,10 @@ def test_cphase_padded_triangles_no_nan_grad():
     """Ragged triangle counts pad rows with A=0, sigma=inf; the cphase
     gradient must stay finite (arctan2 at the origin has a NaN vjp)."""
     import jax.numpy as jnp
-    from bhnerf_tpu.geodesics import image_plane_geos
-    from bhnerf_tpu.models import NeRFPredictor
-    from bhnerf_tpu.train import raytracing_args
-    from bhnerf_tpu.train.step import loss_fn_eht
+    from bhnerf_jax.geodesics import image_plane_geos
+    from bhnerf_jax.models import NeRFPredictor
+    from bhnerf_jax.train import raytracing_args
+    from bhnerf_jax.train.step import loss_fn_eht
 
     geos = image_plane_geos(0.0, np.deg2rad(60), (-8, 8), (-8, 8),
                             ngeo=16, num_alpha=8, num_beta=8, n_fine=512)
@@ -114,7 +114,7 @@ def test_cphase_padded_triangles_no_nan_grad():
 
 
 def test_rho_of_req_unreachable_returns_nan():
-    from bhnerf_tpu.geodesics import equatorial
+    from bhnerf_jax.geodesics import equatorial
     _, rho = equatorial.rho_of_req(0.0, np.deg2rad(20), req=50.0,
                                    mbar=0, varphis=np.array([0.0]),
                                    rho_max=10.0, ngeo=200)
@@ -122,8 +122,8 @@ def test_rho_of_req_unreachable_returns_nan():
 
 
 def test_step_fns_cached():
-    from bhnerf_tpu.models import NeRFPredictor
-    from bhnerf_tpu.train.step import make_step_fns
+    from bhnerf_jax.models import NeRFPredictor
+    from bhnerf_jax.train.step import make_step_fns
     p1 = NeRFPredictor(net_depth=2, net_width=16)
     p2 = NeRFPredictor(net_depth=2, net_width=16)
     a = make_step_fns(p1, 'image', 'lc')
@@ -135,7 +135,7 @@ def test_warp_adopts_quantity_unit_with_plain_start():
     """Quantity t_frames + plain-float t_start_obs must not silently
     drop the time unit (0.1 hr read as 0.1 M renders a frozen movie)."""
     import jax.numpy as jnp
-    from bhnerf_tpu import emission, units
+    from bhnerf_jax import emission, units
     coords = jnp.asarray(np.array([[3.0], [0.0], [0.0]]))
     kw = dict(coords=coords, Omega=0.05, t_geos=0.0, t_injection=-10.0,
               return_mask=True)
@@ -151,7 +151,7 @@ def test_warp_adopts_quantity_unit_with_plain_start():
 def test_config_tolerates_empty_yaml_sections():
     """A bare 'model:' header parses as None; from_dict must treat it
     as all-defaults instead of crashing."""
-    from bhnerf_tpu.config import RunConfig
+    from bhnerf_jax.config import RunConfig
     cfg = RunConfig.from_dict({'model': None, 'optimization': None,
                                'preprocess': None})
     assert cfg.model is not None
@@ -160,7 +160,7 @@ def test_config_tolerates_empty_yaml_sections():
 
 
 def test_generate_tube_rejects_empty_range():
-    from bhnerf_tpu import emission
+    from bhnerf_jax import emission
     with pytest.raises(ValueError, match='empty tube range'):
         emission.generate_tube((8, 8, 8), [0, 0, 1], phi_start=5.5,
                                phi_end=0.5, orbit_radius=6.0, std=0.5,
@@ -168,15 +168,15 @@ def test_generate_tube_rejects_empty_range():
 
 
 def test_rotation_axis_degenerate_poles_finite():
-    from bhnerf_tpu import utils
+    from bhnerf_jax import utils
     for theta in (0.0, np.pi):
         axis, _ = utils.spherical_coords_to_rotation_axis(theta, 0.3)
         assert np.isfinite(axis).all(), (theta, axis)
 
 
 def test_image_plane_dynamics_movie_length_mismatch_raises():
-    from bhnerf_tpu import emission, utils
-    from bhnerf_tpu.geodesics import trace_geodesics
+    from bhnerf_jax import emission, utils
+    from bhnerf_jax.geodesics import trace_geodesics
     b = np.linspace(3, 8, 4)
     geos = trace_geodesics(b, np.zeros_like(b), 0.0, np.deg2rad(60),
                            ngeo=16, n_fine=512)
@@ -190,7 +190,7 @@ def test_sample_3d_grid_ignores_learned_injection_offset():
     """The canonical-frame volume must not be masked out by a positive
     trained injection offset (valid = t - t_inj >= 0 at t = 0)."""
     import jax.numpy as jnp
-    from bhnerf_tpu.models import NeRFPredictor, sample_3d_grid
+    from bhnerf_jax.models import NeRFPredictor, sample_3d_grid
     pred = NeRFPredictor(scale=8.0, net_width=16, net_depth=2,
                          learn_injection=True)
     params = pred.init_params(seed=0)
@@ -202,7 +202,7 @@ def test_sample_3d_grid_ignores_learned_injection_offset():
 def test_quantity_reflected_numpy_ops_keep_unit():
     """numpy left operands must not strip the unit (ndarray - Quantity
     was returning a raw array, laundering hours into M units)."""
-    from bhnerf_tpu import units
+    from bhnerf_jax import units
     q = units.Quantity(30.0, 'min')
     for left in (np.float64(1.0), np.array([1.0, 2.0])):
         out = left - q
@@ -215,8 +215,8 @@ def test_quantity_reflected_numpy_ops_keep_unit():
 def test_tv_reg_accepts_component_leading_coords():
     """tv_reg must treat the codebase-standard (3, N) layout the same as
     (N, 3) instead of interleaving components into fake points."""
-    from bhnerf_tpu import network
-    from bhnerf_tpu.models import NeRFPredictor
+    from bhnerf_jax import network
+    from bhnerf_jax.models import NeRFPredictor
     pred = NeRFPredictor(scale=8.0, net_width=16, net_depth=2)
     params = pred.init_params(seed=0)
     pts = np.random.default_rng(0).uniform(-4, 4, (17, 3))

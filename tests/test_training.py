@@ -8,11 +8,11 @@ import pytest
 
 import jax
 
-from bhnerf_tpu import constants, emission, units
-from bhnerf_tpu.geodesics import image_plane_geos
-from bhnerf_tpu.models import NeRFPredictor, GridPredictor, sample_3d_grid
-from bhnerf_tpu.parallel import create_mesh
-from bhnerf_tpu.train import (Optimizer, TemporalBatchedArgs, TrainStep,
+from bhnerf_jax import constants, emission, units
+from bhnerf_jax.geodesics import image_plane_geos
+from bhnerf_jax.models import NeRFPredictor, GridPredictor, sample_3d_grid
+from bhnerf_jax.parallel import create_mesh
+from bhnerf_jax.train import (Optimizer, TemporalBatchedArgs, TrainStep,
                               TrainState, make_optimizer, raytracing_args,
                               total_movie_loss, save_checkpoint,
                               restore_checkpoint)
@@ -59,7 +59,7 @@ def test_rt_args_finite(problem):
 def test_forward_consistency_with_predictor(problem):
     """NeRF predictor evaluated through the training path must reproduce
     the direct forward model when its output equals the true emission."""
-    from bhnerf_tpu.train.step import image_plane_prediction
+    from bhnerf_jax.train.step import image_plane_prediction
     rt = problem['rt']
 
     class TruthPredictor:
@@ -84,8 +84,8 @@ def test_recovery_lightcurve_loss_drops(problem):
     down by >20x and recover the 3D volume to PSNR >= 25 dB with <= 5%
     lightcurve error (Tutorial-3 analog; thresholds tied to the
     physics, not just optimization — VERDICT r1 weak #5)."""
-    from bhnerf_tpu import utils
-    from bhnerf_tpu.train.step import compact_raytracing_args
+    from bhnerf_jax import utils
+    from bhnerf_jax.train.step import compact_raytracing_args
     predictor = NeRFPredictor(scale=FOV / 2, rmax=FOV / 2, z_width=2.0,
                               net_depth=3, net_width=32, posenc_deg=3)
     # domain-compacted samples: physically identical recovery (equality
@@ -221,7 +221,7 @@ def test_tv_regularizer(problem):
     """step.tv_loss: one-pass finite-difference total variation, usable
     in-loss (the reference's tv_reg intent, network.py:908-933, which is
     broken upstream by an undefined lam)."""
-    from bhnerf_tpu.train.step import tv_loss
+    from bhnerf_jax.train.step import tv_loss
     rough = GridPredictor(scale=FOV / 2, rmax=FOV / 2, grid_res=16)
     rng = np.random.default_rng(0)
     params_rough = {'grid': 20.0 * rng.standard_normal((16, 16, 16))
@@ -277,7 +277,7 @@ def test_learnable_injection_offset(problem):
     the configured injection time; gradients flow through the warp."""
     import dataclasses
     import jax.numpy as jnp
-    from bhnerf_tpu.train.step import image_plane_prediction
+    from bhnerf_jax.train.step import image_plane_prediction
 
     rt = problem['rt']
     t_frames_M = rt.frame_times_M(
@@ -325,7 +325,7 @@ def test_learnable_injection_offset(problem):
 
     # fused request routes through XLA (identical images) for the
     # learnable path, compact and dense alike
-    from bhnerf_tpu.train.step import compact_raytracing_args
+    from bhnerf_jax.train.step import compact_raytracing_args
     crt = compact_raytracing_args(rt, pred)
     a = np.asarray(image_plane_prediction(params_d, pred, t_frames_M,
                                           crt, fused=True))
@@ -344,7 +344,7 @@ def test_learnable_injection_offset(problem):
 def test_scan_log_and_checkpoint_cadence(tmp_path, problem):
     """Scan-chunked training must fire LogFns and checkpoints at exactly
     the per-step loop's steps: chunk boundaries align to every period."""
-    from bhnerf_tpu.train import LogFn
+    from bhnerf_jax.train import LogFn
 
     predictor = NeRFPredictor(scale=FOV / 2, rmax=FOV / 2, z_width=2.0,
                               net_width=16, net_depth=2)
@@ -374,7 +374,7 @@ def test_scan_per_step_logfn_does_not_degrade_chunking(problem):
     steps/s chunked). The scan path replays the chunk's exact loss
     vector through such callbacks instead: the full (step, loss) series
     is observed while the chip sees one dispatch per chunk."""
-    from bhnerf_tpu.train import LogFn
+    from bhnerf_jax.train import LogFn
 
     predictor = NeRFPredictor(scale=FOV / 2, rmax=FOV / 2, z_width=2.0,
                               net_width=16, net_depth=2)
@@ -456,8 +456,8 @@ def test_sigterm_preemption_scan_path(tmp_path, problem):
     """Same contract on the scan-chunked loop: stop at the chunk boundary
     after the signal, with the state checkpointed at that step."""
     import signal
-    from bhnerf_tpu.train import LogFn
-    from bhnerf_tpu.train.step import compact_raytracing_args
+    from bhnerf_jax.train import LogFn
+    from bhnerf_jax.train.step import compact_raytracing_args
     predictor = NeRFPredictor(scale=FOV / 2, rmax=FOV / 2, z_width=2.0,
                               net_depth=2, net_width=16)
     rt = compact_raytracing_args(problem['rt'], predictor, tile=256)

@@ -18,7 +18,7 @@ accuracy pins the geometry.
 import numpy as np
 import pytest
 
-from bhnerf_tpu import observation as obs_lib
+from bhnerf_jax import observation as obs_lib
 
 ARRAY_PATH = 'eht_arrays/EHT2017.txt'
 

@@ -5,8 +5,8 @@ matplotlib.use('Agg')
 import numpy as np
 import pytest
 
-from bhnerf_tpu import utils, visualization
-from bhnerf_tpu.geodesics import trace_geodesics
+from bhnerf_jax import utils, visualization
+from bhnerf_jax.geodesics import trace_geodesics
 
 
 def test_plot_stokes_lc_and_qu_loop():
@@ -150,7 +150,7 @@ def test_spherical_rotation_axis():
 
 
 def test_stokes_movie_container():
-    from bhnerf_tpu import observation as obs_lib
+    from bhnerf_jax import observation as obs_lib
     movie = np.zeros((2, 3, 8, 8))
     sm = obs_lib.stokes_array_to_ehtim(movie, np.array([6.0, 10.0]), 1e-10)
     assert sm.frames.shape == (2, 3, 8, 8)
@@ -168,7 +168,7 @@ def test_interactive_slider_widget_drives_frames():
     import matplotlib
     matplotlib.use('Agg')
     import matplotlib.pyplot as plt
-    from bhnerf_tpu import visualization
+    from bhnerf_jax import visualization
 
     movie = np.stack([np.full((4, 4), i, float) for i in range(5)])
     movie[3, 0, 0] = 10.0

@@ -6,11 +6,11 @@ import pytest
 
 import jax
 
-from bhnerf_tpu import constants, emission, observation as obs_lib, units
-from bhnerf_tpu.geodesics import image_plane_geos
-from bhnerf_tpu.models import NeRFPredictor
-from bhnerf_tpu.ops import gr
-from bhnerf_tpu.train import (Optimizer, TrainState, TrainStep,
+from bhnerf_jax import constants, emission, observation as obs_lib, units
+from bhnerf_jax.geodesics import image_plane_geos
+from bhnerf_jax.models import NeRFPredictor
+from bhnerf_jax.ops import gr
+from bhnerf_jax.train import (Optimizer, TrainState, TrainStep,
                               make_optimizer, raytracing_args,
                               total_movie_loss)
 

@@ -20,8 +20,8 @@ def main(out_dir='tutorial_outputs', small=False):
     matplotlib.use('Agg')
     import matplotlib.pyplot as plt
 
-    from bhnerf_tpu import constants, visualization
-    from bhnerf_tpu.geodesics import image_plane_geos
+    from bhnerf_jax import constants, visualization
+    from bhnerf_jax.geodesics import image_plane_geos
 
     os.makedirs(out_dir, exist_ok=True)
     spin = 0.2

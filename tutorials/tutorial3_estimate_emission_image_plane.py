@@ -19,11 +19,11 @@ def main(out_dir='tutorial_outputs', small=False):
     matplotlib.use('Agg')
     import matplotlib.pyplot as plt
 
-    from bhnerf_tpu import constants, emission, units, utils
-    from bhnerf_tpu.geodesics import image_plane_geos
-    from bhnerf_tpu.models import NeRFPredictor, sample_3d_grid
-    from bhnerf_tpu.train import Optimizer, TrainStep, raytracing_args
-    from bhnerf_tpu.train.step import compact_raytracing_args
+    from bhnerf_jax import constants, emission, units, utils
+    from bhnerf_jax.geodesics import image_plane_geos
+    from bhnerf_jax.models import NeRFPredictor, sample_3d_grid
+    from bhnerf_jax.train import Optimizer, TrainStep, raytracing_args
+    from bhnerf_jax.train.step import compact_raytracing_args
 
     os.makedirs(out_dir, exist_ok=True)
     spin, inc = 0.2, np.deg2rad(60.0)

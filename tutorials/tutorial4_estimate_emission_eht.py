@@ -20,10 +20,10 @@ def main(out_dir='tutorial_outputs', small=False, operator='dense'):
     matplotlib.use('Agg')
     import matplotlib.pyplot as plt
 
-    from bhnerf_tpu import constants, emission, observation, units, utils
-    from bhnerf_tpu.geodesics import image_plane_geos
-    from bhnerf_tpu.models import NeRFPredictor, sample_3d_grid
-    from bhnerf_tpu.train import (TrainState, TrainStep, make_optimizer,
+    from bhnerf_jax import constants, emission, observation, units, utils
+    from bhnerf_jax.geodesics import image_plane_geos
+    from bhnerf_jax.models import NeRFPredictor, sample_3d_grid
+    from bhnerf_jax.train import (TrainState, TrainStep, make_optimizer,
                                   raytracing_args)
 
     os.makedirs(out_dir, exist_ok=True)

@@ -23,14 +23,14 @@ def main(out_dir='tutorial_outputs', small=False):
     matplotlib.use('Agg')
     import matplotlib.pyplot as plt
 
-    from bhnerf_tpu import emission
-    from bhnerf_tpu.visualization import VolumeVisualizer
+    from bhnerf_jax import emission
+    from bhnerf_jax.visualization import VolumeVisualizer
 
     os.makedirs(out_dir, exist_ok=True)
     fov_M = 16.0
     ckpt = os.path.join(out_dir, 'tutorial3_checkpoint')
     if os.path.isdir(ckpt):
-        from bhnerf_tpu.network import sample_checkpoint_3d
+        from bhnerf_jax.network import sample_checkpoint_3d
         vol = sample_checkpoint_3d(ckpt, fov=fov_M, resolution=64)
         print('rendering recovered volume from', ckpt)
     else:
