@@ -1,8 +1,7 @@
 """End-to-end recovery benchmark: the README / BASELINE.md north star.
 
 Default mode runs the Tutorial-3 image-plane workload (64x64 rays x
-ngeo=100, 64 frames, 1000 iterations, domain compaction + fused
-kernel); `--eht` runs the BASELINE.md north-star problem instead —
+ngeo=100, 64 frames, 1000 iterations, domain compaction); `--eht` runs the BASELINE.md north-star problem instead —
 recover the Tutorial-4 hotspot FROM AN ngEHT OBSERVATION (thermal-noise
 visibility synthesis -> complex-visibility chi^2 loss, reference
 Tutorial4 / network.py:537-559). Both print ONE JSON line:
@@ -96,11 +95,11 @@ def main(num_iters=1000, small=False, eht=False, npix=None,
                                        fov_rad / num, obs_empty,
                                        thermal_noise=True, seed=0)
         train_step = TrainStep.eht(t_frames, obs, fov_rad, num, predictor,
-                                   dtype='vis', fused=True,
+                                   dtype='vis',
                                    operator=operator)
     else:
         train_step = TrainStep.image(t_frames, movie, predictor,
-                                     dtype='full', fused=True)
+                                     dtype='full')
     optimizer = Optimizer({'num_iters': num_iters, 'lr_init': 1e-3,
                            'lr_final': 1e-5}, predictor, crt,
                           checkpoint_dir='')

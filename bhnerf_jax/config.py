@@ -88,16 +88,12 @@ class OptimizationConfig:
     # steps fused into one lax.scan dispatch (train.Optimizer scan_chunk;
     # 0 = per-step loop). Sub-pixel ensembles ride the scan path too.
     scan_chunk: int = 500
-    # route the NeRF hot path through domain compaction + the fused
-    # render kernel (ops/fused.py)
-    fused: bool = True
     hparams: HParams = dataclasses.field(default_factory=HParams)
 
     def __post_init__(self):
         self.train_split = float(self.train_split)
         self.batchsize = int(self.batchsize)
         self.scan_chunk = int(self.scan_chunk)
-        self.fused = bool(self.fused)
         if isinstance(self.sigma, str):
             self.sigma = float(self.sigma)
         elif isinstance(self.sigma, (list, tuple)):

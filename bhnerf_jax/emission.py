@@ -197,7 +197,7 @@ def interpolate_coords(emission, coords):
 def domain_mask(coords, rmin=0.0, rmax=np.inf, z_width=np.inf):
     """Boolean mask of the supervised emission shell: rmin <= r <= rmax
     and |z| <= z_width. The single source of truth for the domain
-    predicate shared by the dense, fused, and compacted pipelines.
+    predicate shared by the dense and compacted pipelines.
 
     coords: stacked [x, y, z] with axis 0 the component axis.
     """

@@ -4,8 +4,7 @@ JAX rebuild of the model layer (reference bhnerf/network.py:18-370).
 Structural differences from the reference:
 
 * parameters are plain pytrees (dicts of jnp arrays) instead of flax
-  modules — the fused render kernel consumes raw weight matrices,
-  and the training stack shards/replicates the pytree directly;
+  modules — the training stack shards/replicates the pytree directly;
 * the velocity-warp masking is NaN-free (`emission.velocity_warp_coords`
   with return_mask=True), so gradients stay clean including the
   learnable-t_injection path (the reference relies on NaN propagation at
@@ -73,7 +72,7 @@ def posenc_feature_dim(in_dim, deg):
 def has_learned_injection(params):
     """True when params carry the learnable injection-time offset
     (NeRFPredictor(learn_injection=True)) — the single definition of
-    the predicate used by the fused kernel's VJP and the warp paths."""
+    the predicate used by the warp paths."""
     return isinstance(params, dict) and 't_injection' in params
 
 
@@ -118,8 +117,7 @@ def apply_mlp(params, x, net_depth=4, activation=jax.nn.relu, do_skip=True,
     """MLP with mid-network skip connection (reference network.py:18-64).
 
     compute_dtype='bfloat16' runs every dense layer on bf16 operands with
-    float32 accumulation (the fused kernel's numerics); 'float32' keeps
-    plain float32 matmuls."""
+    float32 accumulation; 'float32' keeps plain float32 matmuls."""
     dtype = jnp.bfloat16 if compute_dtype == 'bfloat16' else None
 
     def dense(p, h):
@@ -156,16 +154,15 @@ class NeRFPredictor:
     out_channel: int = 1
     do_skip: bool = True
     activation: Any = jax.nn.relu
-    # matmul operand dtype of the MLP, on both the XLA path and the fused
-    # kernel (ops/fused.py): 'bfloat16' runs the tensor cores at their
-    # bf16 rate with float32 accumulation. Parameters stay float32.
+    # matmul operand dtype of the MLP: 'bfloat16' runs the tensor cores
+    # at their bf16 rate with float32 accumulation. Parameters stay
+    # float32.
     compute_dtype: str = 'float32'
     # learnable injection-time offset (working form of the reference's
     # commented-out t_injection param, network.py:235): adds a trained
     # scalar params['t_injection'] to the configured injection time.
     # Train with make_optimizer(lr_inject=...). Gradients flow through
-    # the velocity warp (on the fused path via the kernel's frame-time
-    # cotangent).
+    # the velocity warp.
     learn_injection: bool = False
 
     # -- parameters -------------------------------------------------------

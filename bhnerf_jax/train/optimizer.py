@@ -415,11 +415,10 @@ class TrainStep:
 
     @classmethod
     def image(cls, t_frames, target, predictor, sigma=1.0, offset=0.0,
-              scale=1.0, dtype='full', mesh=None, fused=False,
+              scale=1.0, dtype='full', mesh=None,
               tv_scale=0.0, tv_fov=None, tv_resolution=32):
         """Image-plane / lightcurve training step
-        (reference optimization.py:189-217). fused=True routes the NeRF
-        hot path through the fused render kernel; tv_scale > 0 adds a
+        (reference optimization.py:189-217). tv_scale > 0 adds a
         total-variation smoothness penalty on the canonical-frame volume
         (step.tv_loss — the working form of the reference's broken
         tv_reg, network.py:931)."""
@@ -429,21 +428,21 @@ class TrainStep:
         args = TemporalBatchedArgs(t_frames, [target, sigma, offset],
                                    mesh=mesh)
         grad_fn, test_fn = step_lib.make_step_fns(
-            predictor, kind='image', dtype=dtype, fused=fused,
+            predictor, kind='image', dtype=dtype,
             gather=mesh is None, tv_scale=tv_scale, tv_fov=tv_fov,
             tv_resolution=tv_resolution)
         # scan-chunked training is mesh-agnostic (the jitted scan
         # propagates input shardings), so meta is set with or without a
         # mesh; composed steps concatenate these per-loss metas
         meta = dict(
-            predictor=predictor, kind='image', dtype=dtype, fused=fused,
+            predictor=predictor, kind='image', dtype=dtype,
             tv_scale=tv_scale, tv_fov=tv_fov, tv_resolution=tv_resolution)
         return cls(dtype, args, grad_fn, test_fn, scale, scan_meta=meta)
 
     @classmethod
     def eht(cls, t_frames, obs, image_fov, image_size, predictor,
             chisqdata=None, dtype='vis', pol='I', scale=1.0, mesh=None,
-            fused=False, operator='dense'):
+            operator='dense'):
         """EHT measurement training step (reference optimization.py:219-268).
 
         obs: bhnerf_jax.observation.Observation (or anything with
@@ -469,10 +468,10 @@ class TrainStep:
             dtype, target, sigma, A)
         args = TemporalBatchedArgs(t_frames, [target, sigma, A], mesh=mesh)
         grad_fn, test_fn = step_lib.make_step_fns(predictor, kind='eht',
-                                                  dtype=dtype, fused=fused,
+                                                  dtype=dtype,
                                                   gather=mesh is None)
         meta = dict(
-            predictor=predictor, kind='eht', dtype=dtype, fused=fused)
+            predictor=predictor, kind='eht', dtype=dtype)
         return cls(dtype, args, grad_fn, test_fn, scale, scan_meta=meta)
 
     @property

@@ -76,7 +76,7 @@ def raytracing_args(geos, Omega, t_injection, t_start_obs, J=1.0,
     """Freeze geodesics into device arrays (reference network.py:850-894).
 
     t_start_obs: units.Quantity (or float hours). The returned pytree is
-    what TrainStep factories and the fused render kernel consume.
+    what the TrainStep factories consume.
     """
     umu = gr.azimuthal_velocity_vector(geos, jnp.asarray(Omega))
     g = gr.doppler_factor(geos, umu)
@@ -220,7 +220,7 @@ def _pad_grouped(red_gather, red_weights, red_group_ids, valid_slot,
     return red_gather, red_weights, red_group_ids, valid_slot
 
 
-def compact_raytracing_args(rt: RayTracingArgs, predictor, tile=None,
+def compact_raytracing_args(rt: RayTracingArgs, predictor, tile=128,
                             mesh=None, shards=None, shard_axis='ray',
                             pad_local_n=None, pad_groups=None,
                             layout='auto') -> CompactRayArgs:
@@ -228,7 +228,8 @@ def compact_raytracing_args(rt: RayTracingArgs, predictor, tile=None,
 
     predictor supplies rmin/rmax/z_width; J/g/dtau/Sigma fold into a
     single per-sample weight per Stokes component. The sample count is
-    padded to a multiple of `tile` (default: the fused kernel's block).
+    padded to a multiple of `tile` (default 128, the MLP GEMM's row tile),
+    so both the sample count and the compiled shapes stay stable.
 
     mesh + shard_axis (or an explicit shard count) produce the
     SAMPLE-PARALLEL layout: the pixel-sorted in-domain samples are split
@@ -257,9 +258,6 @@ def compact_raytracing_args(rt: RayTracingArgs, predictor, tile=None,
     * 'auto'    — 'native' for multi-Stokes weights, 'gather' otherwise.
     Which layout is faster on the GPU is not measured yet.
     """
-    if tile is None:
-        from bhnerf_jax.ops import fused as fused_lib
-        tile = fused_lib.BLOCK_N
     if shards is None:
         shards = (mesh.shape.get(shard_axis, 1) if mesh is not None else 1)
     if shards > 1 and mesh is None:
@@ -577,36 +575,20 @@ def predict_emission(params, predictor, t_frames_M, rt: RayTracingArgs):
     return predictor.emission_at(params, warped, valid, rt.coords)
 
 
-def _compact_emission(params, predictor, t_frames_M, crt: CompactRayArgs,
-                      fused):
+def _compact_emission(params, predictor, t_frames_M, crt: CompactRayArgs):
     """Per-sample emission over compact samples: (F, n) for flat frames."""
     from bhnerf_jax import emission as emission_lib
     n = crt.coords.shape[-1]
     t_shape = jnp.shape(t_frames_M)
-
-    # XLA path for out_channel > 1 (the kernel emits one emission row
-    # per sample); learnable injection offsets ride the fused path —
-    # the kernel VJP carries the t_eff cotangent
-    fused = fused and getattr(predictor, 'out_channel', 1) == 1
-
-    if fused:
-        # warp + posenc + MLP all inside the fused kernel
-        from bhnerf_jax.ops import fused as fused_lib
-        em = fused_lib.render_samples(
-            params, predictor, t_frames_M, crt.coords, crt.Omega,
-            crt.t_geos_rel,
-            learned_t_injection(params, crt.t_injection))
-        emission = em.reshape(*t_shape, n)
-    else:
-        warped, valid = emission_lib.velocity_warp_coords(
-            crt.coords, crt.Omega, t_frames_M, 0.0, crt.t_geos_rel,
-            learned_t_injection(params, crt.t_injection), t_units=None,
-            return_mask=True)
-        warped = jnp.broadcast_to(warped, (*t_shape, n, 3))
-        valid = jnp.broadcast_to(valid, (*t_shape, n))
-        # domain mask is pre-applied by compaction (and re-masks padding
-        # rows whose coords are 0); only t-validity is dynamic here
-        emission = predictor.emission_at(params, warped, valid, crt.coords)
+    warped, valid = emission_lib.velocity_warp_coords(
+        crt.coords, crt.Omega, t_frames_M, 0.0, crt.t_geos_rel,
+        learned_t_injection(params, crt.t_injection), t_units=None,
+        return_mask=True)
+    warped = jnp.broadcast_to(warped, (*t_shape, n, 3))
+    valid = jnp.broadcast_to(valid, (*t_shape, n))
+    # domain mask is pre-applied by compaction (and re-masks padding
+    # rows whose coords are 0); only t-validity is dynamic here
+    emission = predictor.emission_at(params, warped, valid, crt.coords)
     return emission.reshape(-1, n)
 
 
@@ -618,7 +600,7 @@ def _shape_images(images, t_shape, crt):
 
 
 def _sharded_compact_apply(params, predictor, t_frames_M,
-                           crt: CompactRayArgs, fused, body,
+                           crt: CompactRayArgs, body,
                            with_reduction=True):
     """Sample-parallel shard_map scaffolding shared by the compact image
     and lightcurve paths. with_reduction=False omits the per-pixel
@@ -628,7 +610,7 @@ def _sharded_compact_apply(params, predictor, t_frames_M,
 
     Each device of the `crt.shard_axis` mesh axis owns one contiguous
     sample block (built by compact_raytracing_args(mesh=...)): it runs
-    the full warp+posenc+MLP (fused kernel per device) and then
+    the full warp+posenc+MLP and then
     `body(em, local_crt)` on its block (block-local grouped reduction
     for images, em @ W^T for lightcurves); the per-shard partials are
     merged with ONE psum — no all-gather of any sample-sized tensor.
@@ -664,7 +646,7 @@ def _sharded_compact_apply(params, predictor, t_frames_M,
         local = dc.replace(crt, t_injection=t_inj, num_shards=1,
                            mesh=None, Omega=lv.get('Omega', omega_rep),
                            **{k: v for k, v in lv.items() if k != 'Omega'})
-        em = _compact_emission(params, predictor, t_flat, local, fused)
+        em = _compact_emission(params, predictor, t_flat, local)
         return jax.lax.psum(body(em, local), ax)
 
     omega_rep = crt.Omega if jnp.ndim(crt.Omega) == 0 else 0.0
@@ -675,50 +657,47 @@ def _sharded_compact_apply(params, predictor, t_frames_M,
 
 
 def _sharded_compact_prediction(params, predictor, t_frames_M,
-                                crt: CompactRayArgs, fused):
+                                crt: CompactRayArgs):
     """Sample-parallel compact image prediction (see
     _sharded_compact_apply for the shard_map layout)."""
     images = _sharded_compact_apply(params, predictor, t_frames_M, crt,
-                                    fused, _reduce_to_images)
+                                    _reduce_to_images)
     return _shape_images(images, jnp.shape(t_frames_M), crt)
 
 
-def _compact_prediction(params, predictor, t_frames_M, crt: CompactRayArgs,
-                        fused=False):
+def _compact_prediction(params, predictor, t_frames_M, crt: CompactRayArgs):
     """Image frames from domain-compacted samples: per-sample emission,
     then a sorted segment-sum over pixel ids (sample-parallel under
     shard_map when the args carry a mesh)."""
     if crt.mesh is not None:
         return _sharded_compact_prediction(params, predictor, t_frames_M,
-                                           crt, fused)
+                                           crt)
     t_shape = jnp.shape(t_frames_M)
-    emission = _compact_emission(params, predictor, t_frames_M, crt, fused)
+    emission = _compact_emission(params, predictor, t_frames_M, crt)
     images = _reduce_to_images(emission, crt)
     return _shape_images(images, t_shape, crt)
 
 
-def compact_lightcurve(params, predictor, t_frames_M, crt: CompactRayArgs,
-                       fused=False):
+def compact_lightcurve(params, predictor, t_frames_M, crt: CompactRayArgs):
     """Lightcurve directly from compact samples: lc = em @ weights^T.
 
     The 'lc' loss (the ALMA production loss) sums the image over pixels
     — so the per-pixel reduction (grouped sums + a 750k-row scatter at
     the polarized flagship shape) is dead weight: the per-Stokes totals
     are ONE (F, N) @ (N, ns) matmul, and its VJP is the transposed
-    matmul. loss_fn_image routes compact 'lc'
-    losses through compact_image_and_lightcurve (same math, emission
-    shared with the aux images); this standalone variant serves
-    callers that never need images.
+    matmul. loss_fn_image routes compact 'lc' losses through
+    compact_image_and_lightcurve (same math, emission shared with the aux
+    images); this standalone variant serves callers that never need
+    images.
     """
     t_shape = jnp.shape(t_frames_M)
 
     if crt.mesh is not None:
         lc = _sharded_compact_apply(params, predictor, t_frames_M, crt,
-                                    fused,
                                     lambda em, local: em @ local.weights.T,
                                     with_reduction=False)
     else:
-        em = _compact_emission(params, predictor, t_frames_M, crt, fused)
+        em = _compact_emission(params, predictor, t_frames_M, crt)
         lc = em @ crt.weights.T                       # (F, nstokes)
 
     lc = lc.reshape(*t_shape, crt.num_stokes)
@@ -728,25 +707,25 @@ def compact_lightcurve(params, predictor, t_frames_M, crt: CompactRayArgs,
 
 
 def compact_image_and_lightcurve(params, predictor, t_frames_M,
-                                 crt: CompactRayArgs, fused=False):
+                                 crt: CompactRayArgs):
     """(images, lightcurve) from ONE emission pass over compact samples.
 
     The per-step (non-scan) 'lc' gradient step returns the per-pixel
-    images as aux, and kernel custom-calls are not CSE'd — computing the
-    image and lightcurve independently would run the fused forward twice
-    (and dispatch two shard_maps under a mesh). Share the emission: the
-    lightcurve is em @ W^T and the image reduce rides the same pass
+    images as aux — computing the image and lightcurve independently
+    would run the forward twice under a mesh (two shard_maps). Share the
+    emission: the lightcurve is em @ W^T and the image reduce rides the
+    same pass
     (XLA still dead-code-eliminates the reduce wherever the aux is
     discarded, e.g. inside scan-chunked steps).
     """
     t_shape = jnp.shape(t_frames_M)
     if crt.mesh is not None:
         images, lc = _sharded_compact_apply(
-            params, predictor, t_frames_M, crt, fused,
+            params, predictor, t_frames_M, crt,
             lambda em, local: (_reduce_to_images(em, local),
                                em @ local.weights.T))
     else:
-        em = _compact_emission(params, predictor, t_frames_M, crt, fused)
+        em = _compact_emission(params, predictor, t_frames_M, crt)
         images = _reduce_to_images(em, crt)
         lc = em @ crt.weights.T                       # (F, nstokes)
     images = _shape_images(images, t_shape, crt)
@@ -757,34 +736,23 @@ def compact_image_and_lightcurve(params, predictor, t_frames_M,
 
 
 def image_plane_prediction(params, predictor, t_frames_M,
-                           rt, fused=False):
+                           rt):
     """Emission -> (polarized) image-plane frames
-    (reference network.py:373-420). fused=True routes the NeRF hot path
-    through the fused render kernel (ops/fused.py); CompactRayArgs inputs
-    dispatch to the domain-compacted pipeline."""
+    (reference network.py:373-420). CompactRayArgs inputs dispatch to
+    the domain-compacted pipeline."""
     if isinstance(rt, CompactRayArgs):
-        return _compact_prediction(params, predictor, t_frames_M, rt,
-                                   fused=fused)
-    if fused and getattr(predictor, 'out_channel', 1) == 1:
-        # learnable injection offsets included: the kernel VJP carries
-        # the t_eff cotangent (ops/fused.py)
-        from bhnerf_jax.ops import fused as fused_lib
-        emission = fused_lib.predict_emission_fused(
-            params, predictor, t_frames_M, rt)
-    else:
-        # XLA path (out_channel > 1)
-        emission = predict_emission(params, predictor, t_frames_M, rt)
+        return _compact_prediction(params, predictor, t_frames_M, rt)
+    emission = predict_emission(params, predictor, t_frames_M, rt)
     from bhnerf_jax.emission import apply_stokes_factors
     emission = apply_stokes_factors(emission, rt.J)
     return gr.radiative_transfer(emission, rt.g, rt.dtau, rt.Sigma)
 
 
 def loss_fn_image(params, predictor, target, sigma, offset, t_frames_M,
-                  rt, scale, dtype, fused=False):
+                  rt, scale, dtype):
     """Chi-square image/lightcurve loss (reference network.py:422-484)."""
     if dtype == 'full':
-        images = image_plane_prediction(params, predictor, t_frames_M, rt,
-                                        fused=fused)
+        images = image_plane_prediction(params, predictor, t_frames_M, rt)
         loss = jnp.sum(jnp.abs((images - target - offset) / sigma) ** 2)
     elif dtype == 'lc':
         if isinstance(rt, CompactRayArgs):
@@ -793,10 +761,10 @@ def loss_fn_image(params, predictor, target, sigma, offset, t_frames_M,
             # reassociation); the aux images share the same emission
             # pass and are dead code wherever the aux is discarded
             images, lightcurve = compact_image_and_lightcurve(
-                params, predictor, t_frames_M, rt, fused=fused)
+                params, predictor, t_frames_M, rt)
         else:
             images = image_plane_prediction(params, predictor, t_frames_M,
-                                            rt, fused=fused)
+                                            rt)
             lightcurve = images.sum(axis=(-1, -2))
         loss = jnp.sum(jnp.abs((lightcurve - target - offset) / sigma) ** 2)
     else:
@@ -880,15 +848,14 @@ def apply_measurement_operator(images, A):
 
 
 def loss_fn_eht(params, predictor, target, sigma, A, t_frames_M, rt,
-                scale, dtype, fused=False):
+                scale, dtype):
     """Chi-square losses on interferometric data (network.py:486-564).
 
     A: per-frame DFT matrices in split real/imag layout (see
     to_real_measurements). The image -> visibility map is a batched real
     matmul.
     """
-    images = image_plane_prediction(params, predictor, t_frames_M, rt,
-                                    fused=fused)
+    images = image_plane_prediction(params, predictor, t_frames_M, rt)
     vis_ri = apply_measurement_operator(images, A)
     if dtype == 'vis':
         # vis_ri, target: (..., 2, nvis)
@@ -980,7 +947,7 @@ def _take_frames(x, indices):
 
 @functools.lru_cache(maxsize=64)
 def make_step_fns(predictor, kind='image', dtype='full', donate_state=False,
-                  fused=False, gather=False, tv_scale=0.0, tv_fov=None,
+                  gather=False, tv_scale=0.0, tv_fov=None,
                   tv_resolution=32):
     """Build (grad_step, test_step), each jit'd once per (predictor
     config, loss kind). Mesh-parallelism comes from input shardings.
@@ -991,7 +958,6 @@ def make_step_fns(predictor, kind='image', dtype='full', donate_state=False,
 
     kind='image': batch args are (target, sigma, offset, t_frames).
     kind='eht':   batch args are (target, sigma, A, t_frames).
-    fused=True:   NeRF hot path through the fused render kernel.
     gather=True:  batch args are the FULL frame tensors plus an extra
         `indices` argument; the frame-batch gather happens inside the
         jitted step. One training step is then a single dispatch with no
@@ -1002,7 +968,7 @@ def make_step_fns(predictor, kind='image', dtype='full', donate_state=False,
     def compute_loss(params, target, sigma, third, t_frames, rt, scale):
         t_frames_M = rt.frame_times_M(t_frames)
         loss, aux = loss_fn(params, predictor, target, sigma, third,
-                            t_frames_M, rt, scale, dtype, fused=fused)
+                            t_frames_M, rt, scale, dtype)
         if tv_scale:
             fov = 2.0 * predictor.scale if tv_fov is None else tv_fov
             loss = loss + tv_scale * tv_loss(params, predictor, fov,
@@ -1055,7 +1021,7 @@ def make_step_fns(predictor, kind='image', dtype='full', donate_state=False,
 
 
 @functools.lru_cache(maxsize=64)
-def make_scan_step(predictor, kind='image', dtype='full', fused=False,
+def make_scan_step(predictor, kind='image', dtype='full',
                    tv_scale=0.0, tv_fov=None, tv_resolution=32,
                    batchsize=6, chunk=100, num_variants=1):
     """One dispatch = `chunk` training steps via lax.scan.
@@ -1084,8 +1050,7 @@ def make_scan_step(predictor, kind='image', dtype='full', fused=False,
         take = lambda x: _take_frames(x, indices)
         t_frames_M = rt.frame_times_M(take(t_frames))
         loss, aux = loss_fn(params, predictor, take(target), take(sigma),
-                            take(third), t_frames_M, rt, scale, dtype,
-                            fused=fused)
+                            take(third), t_frames_M, rt, scale, dtype)
         if tv_scale:
             fov = 2.0 * predictor.scale if tv_fov is None else tv_fov
             loss = loss + tv_scale * tv_loss(params, predictor, fov,
@@ -1145,7 +1110,6 @@ def make_composed_scan_step(batchsize=6, chunk=100, num_variants=1,
                    else loss_fn_eht)
         predictor = m['predictor']
         dtype = m['dtype']
-        fused = m.get('fused', False)
         tv_scale = m.get('tv_scale', 0.0)
         tv_fov = m.get('tv_fov')
         tv_resolution = m.get('tv_resolution', 32)
@@ -1156,7 +1120,7 @@ def make_composed_scan_step(batchsize=6, chunk=100, num_variants=1,
             t_frames_M = rt.frame_times_M(take(t_frames))
             loss, aux = loss_fn(params, predictor, take(target),
                                 take(sigma), take(third), t_frames_M,
-                                rt, scale, dtype, fused=fused)
+                                rt, scale, dtype)
             if tv_scale:
                 fov = (2.0 * predictor.scale if tv_fov is None
                        else tv_fov)

@@ -1,6 +1,6 @@
 """Polarized synchrotron radiation for simple geometries (Gelles 2021).
 
-TPU-native port of the reference validation notebook "Polarized
+JAX port of the reference validation notebook "Polarized
 synchrotron radiation for simple geometries (Gelles2021).ipynb": renders
 the EVPA tick pattern around the lensed image of an equatorial ring and
 the Q-U loop of an orbiting point source, for a boosted-ZAMO emitter with

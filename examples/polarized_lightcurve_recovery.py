@@ -2,7 +2,7 @@
 
 The "Synthetic lightcurves 1 - Recovery idealized" workflow of the
 reference: fit the NeRF to polarized (Q, U) lightcurves of a hotspot at
-the true inclination through the optimized compact+fused path.
+the true inclination through the optimized compact path.
 Lightcurve-only tomography is strongly ill-posed (1D data -> 3D volume);
 the reference attacks it with 50k-iteration runs over inclination grids
 and random seeds (scripts/fit_synthetic_lp_flares.py) — this example is
@@ -50,7 +50,7 @@ rt = raytracing_args(geos, Omega, t_injection, t_frames[0], J=J)
 crt = compact_raytracing_args(rt, predictor)
 # fit Q,U only (stokes 1:2) like the synthetic flares script
 step = TrainStep.image(t_frames, lc[:, 1:3], predictor,
-                       sigma=0.01, dtype='lc', fused=True)
+                       sigma=0.01, dtype='lc')
 # restrict J to Q,U for the fit
 rtQU = raytracing_args(geos, Omega, t_injection, t_frames[0], J=J[1:3])
 crtQU = compact_raytracing_args(rtQU, predictor)

@@ -61,8 +61,7 @@ def main(out_dir='example_outputs', small=False):
                               z_width=2.0)
     rt = raytracing_args(geos, Omega, t_injection, t_frames[0])
     crt = compact_raytracing_args(rt, predictor)
-    train_step = TrainStep.image(t_frames, movie, predictor, dtype='full',
-                                 fused=not small)
+    train_step = TrainStep.image(t_frames, movie, predictor, dtype='full')
     optimizer = Optimizer({'num_iters': num_iters, 'lr_init': 1e-3,
                            'lr_final': 1e-5}, predictor, crt)
     optimizer.run(batchsize=min(6, nt), train_step=train_step,

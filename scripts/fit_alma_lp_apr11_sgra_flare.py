@@ -1,6 +1,6 @@
 """Fit the April 11 ALMA linear polarization of Sagittarius A*.
 
-TPU-native port of reference scripts/Fit_ALMA_LP_Apr11_SgrA_Flare.py:
+JAX port of reference scripts/Fit_ALMA_LP_Apr11_SgrA_Flare.py:
 fits the Q-U-loop period after the X-ray flare (Wielgus et al. 2022)
 over an inclination grid x seeds with tensorboard logging and
 checkpoint-based sweep resume.
@@ -51,14 +51,15 @@ def main():
     from bhnerf_jax.models import NeRFPredictor
     from bhnerf_jax.train import LogFn, Optimizer, TrainStep
     from bhnerf_jax.train.logging import SummaryWriter
+    from bhnerf_jax.train.step import compact_ensemble_args
     from tqdm import tqdm
 
     basename = 'inc_{:.1f}.seed_{}'
     args = parse_args()
     if os.environ.get('DRIVE_CPU'):      # drive rehearsals pin the host
         jax.config.update('jax_platforms', 'cpu')
-    # backend visibility: a mis-set plugin env silently falls back to
-    # CPU at ~300x the step time — make that diagnosable from the log
+    # backend visibility: a run that lands on the CPU is ~300x slower —
+    # make that diagnosable from the log
     print(f'# jax devices: {jax.devices()}', flush=True)
     cfg = config_lib.RunConfig.from_yaml(args.config_path)
     if args.data_path:
@@ -88,10 +89,9 @@ def main():
                               z_width=model.z_width)
     train_step = TrainStep.image(t_train, data_train, predictor,
                                  sigma=np.asarray(opt_cfg.sigma),
-                                 dtype='lc', fused=opt_cfg.fused)
+                                 dtype='lc')
     val_step = TrainStep.image(t_val, data_val, predictor,
-                               sigma=np.asarray(opt_cfg.sigma), dtype='lc',
-                               fused=opt_cfg.fused)
+                               sigma=np.asarray(opt_cfg.sigma), dtype='lc')
     rot_angle = np.deg2rad(cfg.preprocess.de_rot_angle + 20.0)
 
     inc_grid = config_lib.inclination_grid(args.inc, args.start_inc)
@@ -102,13 +102,11 @@ def main():
         raytracing_args = alma.get_raytracing_args(
             np.deg2rad(inclination), model.spin, model.asdict(),
             rot_angle=rot_angle, num_subpixel_rays=model.num_subrays)
-        if opt_cfg.fused:
-            # domain compaction (uniformly padded across the sub-pixel
-            # ensemble) puts the whole fit — including the in-scan
-            # per-step variant draw — on the fused scan-chunked path
-            from bhnerf_jax.train.step import compact_ensemble_args
-            raytracing_args = compact_ensemble_args(
-                raytracing_args, predictor, layout='gather')
+        # domain compaction (uniformly padded across the sub-pixel
+        # ensemble) puts the whole fit — including the in-scan per-step
+        # variant draw — on the compact scan-chunked path
+        raytracing_args = compact_ensemble_args(
+            raytracing_args, predictor, layout='gather')
 
         for seed in tqdm(seeds, desc='seed', leave=False):
             runname = basename.format(inclination, seed)

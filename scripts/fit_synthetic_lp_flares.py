@@ -1,6 +1,6 @@
 """Fit synthetic linear-polarization flare data of Sagittarius A*.
 
-TPU-native port of reference scripts/Fit_Synthetic_LP_Flares.py: two-YAML
+JAX port of reference scripts/Fit_Synthetic_LP_Flares.py: two-YAML
 merge (simulation + recovery), inclination grid x seeds, time-based
 train/validation split, tensorboard + checkpoints, skip-if-exists resume.
 """
@@ -39,6 +39,7 @@ def main():
     from bhnerf_jax.models import NeRFPredictor
     from bhnerf_jax.train import LogFn, Optimizer, TrainStep
     from bhnerf_jax.train.logging import SummaryWriter
+    from bhnerf_jax.train.step import compact_ensemble_args
     from tqdm import tqdm
     import pandas as pd
 
@@ -82,7 +83,7 @@ def main():
         posenc_var=model_params.get('recovery_scale', 1.0) / fov_M)
     train_step = TrainStep.image(t_train, data_train, predictor,
                                  sigma=np.asarray(opt_cfg.sigma),
-                                 dtype='lc', fused=opt_cfg.fused)
+                                 dtype='lc')
 
     sim_name = simulation_params.get('name', data_path.stem)
     recovery_dir = data_path.parent / 'recovery' / sim_name
@@ -93,7 +94,7 @@ def main():
                   default_flow_style=False)
 
     # ground-truth flare volume for 3D PSNR logging (.npz with
-    # data/start/stop — the TPU build's Grid3D serialization)
+    # data/start/stop — this package's Grid3D serialization)
     emission_flare = None
     flare_path = simulation_params.get('flare_path')
     if flare_path and Path(flare_path).exists():
@@ -110,12 +111,10 @@ def main():
         raytracing_args = alma.get_raytracing_args(
             np.deg2rad(inclination), spin, model_params, stokes,
             num_subpixel_rays=model_params.get('num_subrays', 1))
-        if opt_cfg.fused:
-            # uniform compaction keeps the sub-pixel ensemble on the
-            # fused scan-chunked path (variant drawn in-scan)
-            from bhnerf_jax.train.step import compact_ensemble_args
-            raytracing_args = compact_ensemble_args(
-                raytracing_args, predictor, layout='gather')
+        # uniform compaction keeps the sub-pixel ensemble on the
+        # compact scan-chunked path (variant drawn in-scan)
+        raytracing_args = compact_ensemble_args(
+            raytracing_args, predictor, layout='gather')
 
         for seed in tqdm(seeds, desc='seed', leave=False):
             runname = basename.format(inclination, seed)

@@ -1,6 +1,6 @@
 """Generate synthetic polarized lightcurve datasets.
 
-TPU-native port of the reference "Synthetic lightcurves 0 - Generate
+JAX port of the reference "Synthetic lightcurves 0 - Generate
 data" notebook: render polarized lightcurves of an orbiting hotspot (or
 flux tube) through the GR forward model, add noise, and save the CSV +
 ground-truth flare volume consumed by scripts/fit_synthetic_lp_flares.py.

@@ -1,4 +1,4 @@
-"""Profile the fused scan step and print the device-op time breakdown.
+"""Profile the compact scan step and print the device-op time breakdown.
 
 Writes a jax.profiler trace of REPS scanned train steps, then parses the
 perfetto JSON to aggregate the durations of the ops that ran on the GPU.
@@ -21,7 +21,7 @@ REPS = 50
 TRACE_DIR = os.path.join(REPO, 'chiprun_out', 'perf_trace')
 
 
-def _cached_geos(fov):
+def _bench_geos(fov):
     """The bench's 64x64x100 geodesic table (host f64 trace)."""
     from bhnerf_jax.geodesics import image_plane_geos
     return image_plane_geos(
@@ -54,10 +54,10 @@ def main():
     rng = np.random.default_rng(0)
     if eht:
         # visibility-loss north-star step (bench_recovery --eht shape):
-        # ngEHT thermal-noise synthesis -> complex-vis chi^2, compact+fused
+        # ngEHT thermal-noise synthesis -> complex-vis chi^2, compact
         from bhnerf_jax import observation
         from bhnerf_jax.train import TrainStep
-        geos = _cached_geos(fov)
+        geos = _bench_geos(fov)
         Omega = geos.keplerian_omega()
         t_frames = units.Quantity(
             np.linspace(4.0, 15.5, nt).astype(np.float32), 'hr')
@@ -75,7 +75,7 @@ def main():
                                        fov_rad / 64, obs_empty,
                                        thermal_noise=True, seed=0)
         train_step = TrainStep.eht(t_frames, obs, fov_rad, 64, predictor,
-                                   dtype='vis', fused=True)
+                                   dtype='vis')
         num_variants = 1
         import jax
         scan_fn = make_scan_step(batchsize=6, chunk=REPS,
@@ -115,7 +115,7 @@ def main():
         t_all = jnp.asarray(np.linspace(0.0, 1.0, nt, dtype=np.float32))
         kind_kwargs = dict(kind='image', dtype='lc')
     else:
-        geos = _cached_geos(fov)
+        geos = _bench_geos(fov)
         Omega = geos.keplerian_omega()
         rt = raytracing_args(geos, Omega, -float(geos.r_o + 4),
                              units.Quantity(0.0, 'hr'))
@@ -128,7 +128,7 @@ def main():
 
     sigma = jnp.ones_like(target)
     offset = jnp.zeros_like(target)
-    scan_fn = make_scan_step(predictor=predictor, fused=True, batchsize=6,
+    scan_fn = make_scan_step(predictor=predictor, batchsize=6,
                              chunk=REPS, num_variants=num_variants,
                              **kind_kwargs)
     state = TrainState.create(predictor.init_params(seed=0),

@@ -155,10 +155,8 @@ def test_composed_scan_matches_per_step_loop(ensemble):
     key = jax.random.PRNGKey(9)
     scales = (1.0, 0.5)
 
-    meta_full = dict(predictor=predictor, kind='image', dtype='full',
-                     fused=False)
-    meta_lc = dict(predictor=predictor, kind='image', dtype='lc',
-                   fused=False)
+    meta_full = dict(predictor=predictor, kind='image', dtype='full')
+    meta_lc = dict(predictor=predictor, kind='image', dtype='lc')
     scan_fn = make_composed_scan_step(
         batchsize=batchsize, chunk=chunk,
         metas=(tuple(sorted(meta_full.items())),
@@ -245,10 +243,8 @@ def test_composed_ensemble_scan_matches_per_step_loop(ensemble):
     key = jax.random.PRNGKey(13)
     scales = (1.0, 0.25)
 
-    meta_full = dict(predictor=predictor, kind='image', dtype='full',
-                     fused=False)
-    meta_lc = dict(predictor=predictor, kind='image', dtype='lc',
-                   fused=False)
+    meta_full = dict(predictor=predictor, kind='image', dtype='full')
+    meta_lc = dict(predictor=predictor, kind='image', dtype='lc')
     scan_fn = make_composed_scan_step(
         batchsize=batchsize, chunk=chunk, num_variants=V,
         metas=(tuple(sorted(meta_full.items())),

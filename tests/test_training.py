@@ -323,14 +323,13 @@ def test_learnable_injection_offset(problem):
     g_t = np.asarray(jax.grad(loss, argnums=1)(jnp.float32(delta), t_M))
     np.testing.assert_allclose(g, -g_t.sum(), rtol=1e-4)
 
-    # fused request routes through XLA (identical images) for the
-    # learnable path, compact and dense alike
+    # the compact path renders the learnable-injection model like the
+    # dense path
     from bhnerf_jax.train.step import compact_raytracing_args
     crt = compact_raytracing_args(rt, pred)
     a = np.asarray(image_plane_prediction(params_d, pred, t_frames_M,
-                                          crt, fused=True))
-    b = np.asarray(image_plane_prediction(params_d, pred, t_frames_M,
-                                          crt, fused=False))
+                                          crt))
+    b = np.asarray(image_plane_prediction(params_d, pred, t_frames_M, rt))
     np.testing.assert_allclose(a, b, atol=1e-6)
 
     # YAML round-trip preserves the flag

@@ -1,6 +1,6 @@
 """Tutorial 1 — Kerr geodesics.
 
-TPU-native port of the reference "Tutorial1 - Kerr geodesics.ipynb":
+JAX port of the reference "Tutorial1 - Kerr geodesics.ipynb":
 trace null geodesics of a spinning black hole for the full image plane,
 inspect the dataset, and visualize rays in 3D.
 

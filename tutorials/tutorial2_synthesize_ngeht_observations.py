@@ -1,6 +1,6 @@
 """Tutorial 2 — synthesize ngEHT observations of an orbiting hotspot.
 
-TPU-native port of "Tutorial2 - synthesize ngEHT observations.ipynb":
+JAX port of "Tutorial2 - synthesize ngEHT observations.ipynb":
 forward-model an orbiting hotspot movie through the GR renderer, then
 observe it with the ngEHT array (uv coverage, thermal noise).
 

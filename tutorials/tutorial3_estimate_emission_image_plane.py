@@ -1,6 +1,6 @@
 """Tutorial 3 — estimate 3D emission from image-plane measurements.
 
-TPU-native port of "Tutorial3 - estimate 3D emission from image plane":
+JAX port of "Tutorial3 - estimate 3D emission from image plane":
 closed-loop recovery of an orbiting hotspot from its rendered movie.
 
 Run:  python tutorials/tutorial3_estimate_emission_image_plane.py

@@ -1,6 +1,6 @@
 """Tutorial 4 — estimate 3D emission from EHT observations.
 
-TPU-native port of "Tutorial4 - estimate 3D emission from EHT
+JAX port of "Tutorial4 - estimate 3D emission from EHT
 observations": recover the hotspot from complex visibilities synthesized
 with the ngEHT array.
 

@@ -1,6 +1,6 @@
 """Tutorial 5 — visualize recovery results.
 
-TPU-native port of "Tutorial5 - visualize recovery results": render the
+JAX port of "Tutorial5 - visualize recovery results": render the
 recovered 3D emission volume with the flat-space pinhole-camera
 VolumeVisualizer (jit-compiled alpha compositing).
 
